@@ -1,12 +1,12 @@
-"""albatross_tpu — a TPU-native Gaussian-process inference framework.
+"""albatross_tpu — a Gaussian-process inference framework for accelerators.
 
-A from-scratch JAX/XLA/Pallas re-design with the modelling capabilities of
+A from-scratch JAX/XLA re-design with the modelling capabilities of
 swift-nav/albatross (see SURVEY.md at the repo root): a composable
 covariance/mean-function DSL with parameter+prior handling, exact and sparse
 (FITC/PITC) Gaussian-process regression, fast leave-one-out/-group-out
 cross-validation, gradient-based and MCMC hyperparameter inference, RANSAC
-outlier rejection, and pytree checkpointing — built TPU-first: batched Gram
-assembly on the MXU, blocked Cholesky, mesh-sharded scaling via
+outlier rejection, and pytree checkpointing — built accelerator-first:
+batched Gram assembly, GEMM-rich blocked Cholesky, mesh-sharded scaling via
 pjit/shard_map, and vmapped fold/walker parallelism.
 """
 

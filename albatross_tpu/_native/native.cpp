@@ -2,7 +2,7 @@
 //
 // The reference leans on native C/C++ for its data loading and graph
 // machinery (fast-cpp-csv-parser in examples/sinc_example_utils.h, the
-// header-only Kruskal MST in src/graph/minimum_spanning_tree.hpp).  The TPU
+// header-only Kruskal MST in src/graph/minimum_spanning_tree.hpp).  This
 // build keeps the device compute in XLA but provides the same native
 // host-side capabilities here, exposed through a minimal C ABI consumed via
 // ctypes (no pybind11 in the image).

@@ -1,13 +1,13 @@
 """Regression dataset container.
 
-TPU-native re-design of ``RegressionDataset<FeatureType>``
+JAX re-design of ``RegressionDataset<FeatureType>``
 (/root/reference/include/albatross/src/core/dataset.hpp:25-189).
 
 Features are *structured arrays*: either a single ``jnp`` array with leading
 axis N (shape ``(N,)`` or ``(N, D)``) or any pytree whose leaves share a
 leading axis N ("struct of arrays").  This replaces the reference's
 ``std::vector<FeatureType>`` — batch-level layout is what lets Gram
-construction hit the MXU instead of looping over scalar ``_call_impl`` calls.
+construction run as batched array ops instead of looping over scalar ``_call_impl`` calls.
 """
 
 from __future__ import annotations

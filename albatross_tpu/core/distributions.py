@@ -1,6 +1,6 @@
 """Gaussian distribution containers.
 
-TPU-native re-design of the reference distribution types
+JAX re-design of the reference distribution types
 (/root/reference/include/albatross/src/core/distribution.hpp:27-285 and
  transformed_distribution.hpp:30-123).
 

@@ -1,6 +1,6 @@
 """Parameter store and tunable-vector round trip.
 
-TPU-native re-design of the reference parameter system
+JAX re-design of the reference parameter system
 (/root/reference/include/albatross/src/core/parameters.hpp:21-305,
  parameter_handling_mixin.hpp:204-295).
 

@@ -1,6 +1,6 @@
 """Parameter priors.
 
-TPU-native re-design of the reference prior hierarchy
+JAX re-design of the reference prior hierarchy
 (/root/reference/include/albatross/src/core/priors.hpp:29-253).
 
 Each prior provides ``log_pdf`` (JAX-traceable, so prior terms participate in

@@ -1,6 +1,6 @@
 """Cross-validation driver.
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/evaluation/cross_validation.hpp:29-331.
 
 ``model.cross_validate().predict(dataset, grouper)`` yields a CV prediction

@@ -1,6 +1,6 @@
 """Fast held-out prediction machinery (LOO / LOGO).
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/evaluation/cross_validation_utils.hpp:102-286.
 
 The math: with the full training covariance factorized once, the held-out

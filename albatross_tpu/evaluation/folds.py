@@ -1,6 +1,6 @@
 """Cross-validation folds.
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/evaluation/folds.hpp:21-146.
 """
 

@@ -1,6 +1,6 @@
 """Prediction metrics.
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/evaluation/prediction_metrics.hpp:37-526.
 
 Metrics are callables ``metric(prediction, truth: MarginalDistribution) ->

@@ -1,6 +1,6 @@
 """Model metrics: cross-validation-based objective functions.
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/evaluation/model_metrics.hpp:18-100.
 """
 

@@ -1,6 +1,6 @@
 """Split-apply-combine over datasets and feature batches.
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/indexing/group_by.hpp:67-620 and
 subset.hpp:22-215.
 

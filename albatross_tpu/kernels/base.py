@@ -1,6 +1,6 @@
 """Covariance-function combinator algebra.
 
-TPU-native re-design of the reference covariance DSL
+JAX re-design of the reference covariance DSL
 (/root/reference/include/albatross/src/covariance_functions/covariance_function.hpp:63-437
  and callers.hpp:196-592).
 
@@ -8,7 +8,7 @@ The reference dispatches scalar ``_call_impl(x, y)`` per feature pair through
 a compile-time caller chain (symmetry / Measurement unwrap / LinearCombination
 integration / variant visitation).  Here each kernel implements *batch-level*
 ``_matrix(X, Y, x_meas, y_meas) -> (N, M) array or None`` so Gram assembly is
-a handful of fused XLA ops on the MXU, and the caller chain becomes explicit
+a handful of fused XLA ops, and the caller chain becomes explicit
 runtime logic in ``CovarianceFunction.__call__``:
 
 * Measurement tags are batch-level wrappers, unwrapped here and passed down as
@@ -58,7 +58,7 @@ class CovarianceFunction(Module):
             # (callers.hpp:107-129); symmetrizing removes epsilon-level
             # asymmetry from matmul-reduction paths and protects Cholesky.
             # Kernels whose formulas are elementwise-symmetric skip this
-            # (saves an N² transpose+add pass over HBM).
+            # (saves an N² transpose+add pass over device memory).
             result = 0.5 * (result + result.T)
         return result
 

@@ -1,12 +1,12 @@
 """Batched distance metrics.
 
-TPU-native re-design of the reference distance metrics
+JAX re-design of the reference distance metrics
 (/root/reference/include/albatross/src/covariance_functions/distance_metrics.hpp:30-90).
 
 The reference computes distances one scalar pair at a time; here each metric
-produces the full pairwise matrix for feature *batches* in one shot so the
-inner contraction (`x · y`) runs on the MXU via a single matmul.  Metrics are
-immutable, hashable, parameter-free dataclasses — static metadata on kernels.
+produces the full pairwise matrix for feature *batches* in one shot.  Metrics
+are immutable, hashable, parameter-free dataclasses — static metadata on
+kernels.
 """
 
 from __future__ import annotations
@@ -46,6 +46,41 @@ class DistanceMetric:
         return jnp.zeros(X.shape[0], dtype=X.dtype)
 
 
+@jax.custom_vjp
+def squared_distances(X, Y) -> jnp.ndarray:
+    """Exact (N, M) squared distances Σ_k (x_ik − y_jk)² of (N, D) / (M, D)
+    batches: per-pair differences, as the reference computes them
+    (distance_metrics.hpp:30-45).  Bitwise symmetric and exactly zero on
+    the diagonal when Y is X, with no cancellation at large coordinates.
+    XLA fuses the broadcast, square and sum into one reduction, so no
+    (N, M, D) array is stored."""
+    diff = X[:, None, :] - Y[None, :, :]
+    return jnp.sum(diff * diff, axis=-1)
+
+
+def _squared_distances_fwd(X, Y):
+    return squared_distances(X, Y), (X, Y)
+
+
+def _squared_distances_bwd(residuals, g):
+    # ∂/∂x_i Σ_j g_ij |x_i − y_j|² = 2 (x_i Σ_j g_ij − Σ_j g_ij y_j): two
+    # GEMMs instead of an (N, M, D) product.  Shifting both batches by a
+    # common centre leaves the result unchanged and keeps large
+    # coordinates from cancelling in the difference.
+    X, Y = residuals
+    c = 0.5 * (jnp.mean(X, axis=0) + jnp.mean(Y, axis=0))
+    Xc, Yc = X - c, Y - c
+    hi = jax.lax.Precision.HIGHEST
+    gX = 2.0 * (Xc * jnp.sum(g, axis=1)[:, None]
+                - jnp.matmul(g, Yc, precision=hi))
+    gY = 2.0 * (Yc * jnp.sum(g, axis=0)[:, None]
+                - jnp.matmul(g.T, Xc, precision=hi))
+    return gX, gY
+
+
+squared_distances.defvjp(_squared_distances_fwd, _squared_distances_bwd)
+
+
 @dataclasses.dataclass(frozen=True)
 class EuclideanDistance(DistanceMetric):
     """|x - y| for scalars, ||x - y|| for vectors."""
@@ -54,25 +89,10 @@ class EuclideanDistance(DistanceMetric):
     def name(self) -> str:
         return "euclidean_distance"
 
-    # Below this many feature dimensions the exact elementwise broadcast is
-    # used; above it the MXU matmul trick wins.  The matmul runs at HIGHEST
-    # precision: TPU's default f32 matmul is a single bf16 pass, which
-    # catastrophically cancels |x|²+|y|²−2x·y for large-magnitude features
-    # (observed as NaN Cholesky on v5e with x ~ O(100)).
-    _BROADCAST_MAX_D = 8
-
     def pairwise_squared(self, X, Y) -> jnp.ndarray:
         """Squared pairwise distances; no sqrt for kernels (like the squared
         exponential) that only need d²."""
-        X, Y = as_matrix(X), as_matrix(Y)
-        if X.shape[-1] <= self._BROADCAST_MAX_D:
-            diff = X[:, None, :] - Y[None, :, :]
-            return jnp.sum(diff * diff, axis=-1)
-        x2 = jnp.sum(X * X, axis=-1)
-        y2 = jnp.sum(Y * Y, axis=-1)
-        xy = jax.lax.dot(X, Y.T, precision=jax.lax.Precision.HIGHEST)
-        d2 = x2[:, None] + y2[None, :] - 2.0 * xy
-        return jnp.maximum(d2, 0.0)
+        return squared_distances(as_matrix(X), as_matrix(Y))
 
     def pairwise(self, X, Y) -> jnp.ndarray:
         X, Y = as_matrix(X), as_matrix(Y)

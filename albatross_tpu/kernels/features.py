@@ -1,6 +1,6 @@
 """Feature wrappers: Measurement tags and linear combinations.
 
-TPU-native re-design of the reference feature wrappers
+JAX re-design of the reference feature wrappers
 (/root/reference/include/albatross/src/covariance_functions/measurement.hpp:18-67,
  core/linear_combination.hpp:18-100).
 
@@ -60,7 +60,7 @@ class LinearCombinationBatch:
     ``values`` has shape (N, K, ...feature dims...); ``coefficients`` has
     shape (N, K).  cov(lc_i, y_j) = sum_a c_{ia} k(v_{ia}, y_j), which the
     kernel base evaluates as one big gram over the flattened (N*K) features
-    followed by a coefficient contraction — MXU-friendly, no per-element
+    followed by a coefficient contraction — GEMM-friendly, no per-element
     dispatch.
     """
 

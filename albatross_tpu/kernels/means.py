@@ -1,6 +1,6 @@
 """Mean functions.
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/covariance_functions/mean_function.hpp:18-270
 and the LinearMean (polynomials.hpp:92-107).
 

@@ -1,6 +1,6 @@
 """MeasurementOnly covariance wrapper.
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/covariance_functions/measurement.hpp:70-110:
 a term that contributes only between Measurement-tagged batches (e.g. noise in
 the training covariance but not in train/test or test/test covariances).

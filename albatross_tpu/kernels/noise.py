@@ -1,6 +1,6 @@
 """Noise kernels: IndependentNoise and Nugget.
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/covariance_functions/noise.hpp:21-46 and
 nugget.hpp:32-50.
 

@@ -1,6 +1,6 @@
 """Constant and polynomial covariance terms.
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/covariance_functions/polynomials.hpp:20-110.
 """
 

@@ -1,26 +1,32 @@
 """Radial covariance kernels.
 
-TPU-native re-design of the reference radial kernels
+JAX re-design of the reference radial kernels
 (/root/reference/include/albatross/src/covariance_functions/radial.hpp:131-529).
 
 Parameter names, defaults, priors and the closed-form covariances match the
 reference exactly (kernel-value parity is golden-tested against gpytorch
 values, mirroring /root/reference/python/gpytorch_covariance.py).  Gram
-evaluation is batched: distances come from one MXU matmul, the radial profile
-is a fused elementwise epilogue.
+evaluation is batched: one fused reduction for the distances, the radial
+profile as its elementwise epilogue.
 """
 
 from __future__ import annotations
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..core.parameters import Parameter
 from ..core.priors import NonNegativePrior, PositivePrior
 from .base import CovarianceFunction
-from .distances import AngularDistance, DistanceMetric, EuclideanDistance
+from .distances import (
+    AngularDistance,
+    DistanceMetric,
+    EuclideanDistance,
+    as_matrix,
+)
 
 DEFAULT_LENGTH_SCALE = 100000.0
 DEFAULT_RADIAL_SIGMA = 10.0
@@ -62,12 +68,31 @@ def matern_52_covariance(distance, length_scale, sigma=1.0):
     return jnp.where(length_scale > 0.0, value, 0.0)
 
 
+def radial_profile(profile: str, d2, length_scale, sigma):
+    """Radial profile ``profile`` (a ``_profile_name``) on SQUARED
+    distances — the form the lazy-gram factorization builds its columns
+    with (d² avoids a sqrt for the squared exponential)."""
+    s2 = sigma * sigma
+    if profile == "squared_exponential":
+        return s2 * jnp.exp(-d2 / (length_scale * length_scale))
+    scaled = jnp.sqrt(jnp.maximum(d2, 0.0)) / length_scale
+    if profile == "exponential":
+        return s2 * jnp.exp(-scaled)
+    if profile == "matern_32":
+        sqrt3 = math.sqrt(3.0) * scaled
+        return s2 * (1.0 + sqrt3) * jnp.exp(-sqrt3)
+    if profile == "matern_52":
+        sqrt5 = math.sqrt(5.0) * scaled
+        return s2 * (1.0 + sqrt5 + sqrt5 * sqrt5 / 3.0) * jnp.exp(-sqrt5)
+    raise ValueError(f"unknown profile {profile}")
+
+
 class _RadialKernel(CovarianceFunction):
     """Shared machinery: distance -> profile, diag, 1-D inducing grids."""
 
     _length_scale_param: str
     _sigma_param: str
-    _profile_name: str = ""  # pallas profile tag ("" = no fused path)
+    _profile_name: str = ""  # radial_profile tag ("" = no lazy-gram path)
     _ssr_points_per_length_scale: float = 10.0
 
     def _profile(self, distance, length_scale, sigma):
@@ -80,47 +105,37 @@ class _RadialKernel(CovarianceFunction):
 
     def _matrix(self, X, Y, x_meas, y_meas):
         ls, sigma = self._params_values()
-        fused = self._fused_matrix(X, Y, ls, sigma)
-        if fused is not None:
-            return fused
+        gram = self._triton_gram(X, Y, ls, sigma)
+        if gram is not None:
+            return gram
         d = self.distance_metric.pairwise(X, Y)
         return self._profile(d, ls, sigma)
 
-    def _fused_matrix(self, X, Y, ls, sigma):
-        """Fused Pallas gram tile kernel (TPU, f32, Euclidean, large N·M)."""
+    def _triton_gram(self, X, Y, ls, sigma):
+        """The GPU kernel gram (ops/triton_gram.py) for high-D f32 array
+        batches under a Euclidean metric, else None."""
         if not self._profile_name or not isinstance(
             self.distance_metric, EuclideanDistance
         ):
             return None
-        import jax
-
-        from .. import config
-
-        Xl = jax.tree_util.tree_leaves(X)
-        Yl = jax.tree_util.tree_leaves(Y)
-        if len(Xl) != 1 or Xl[0].ndim > 2 or Yl[0].ndim > 2:
+        if not (isinstance(X, jax.Array) and isinstance(Y, jax.Array)):
             return None
-        n_elements = Xl[0].shape[0] * Yl[0].shape[0]
-        d = 1 if Xl[0].ndim == 1 else Xl[0].shape[-1]
-        if not config.pallas_gram_enabled(n_elements, Xl[0].dtype, d):
-            return None
-        from ..ops.pallas_gram import fused_radial_gram
+        from ..ops.triton_gram import radial_gram, use_triton_gram
 
-        return fused_radial_gram(Xl[0], Yl[0], ls, sigma, self._profile_name)
+        X, Y = as_matrix(X), as_matrix(Y)
+        if not use_triton_gram(X, Y):
+            return None
+        return radial_gram(X, Y, ls, sigma, self._profile_name)
 
     def _symmetric_exact(self, X):
-        import jax
-
         from .distances import RadialDistance
 
-        metric = self.distance_metric
-        if isinstance(metric, EuclideanDistance):
-            leaf = jax.tree_util.tree_leaves(X)[0]
-            d = 1 if leaf.ndim == 1 else leaf.shape[-1]
-            return d <= EuclideanDistance._BROADCAST_MAX_D
-        # RadialDistance is elementwise (norm differences); AngularDistance
-        # uses a matmul reduction whose transpose-exactness is not guaranteed.
-        return isinstance(metric, RadialDistance)
+        # Euclidean and radial distances are per-pair elementwise formulas;
+        # AngularDistance uses a matmul reduction whose transpose-exactness
+        # is not guaranteed.
+        return isinstance(
+            self.distance_metric, (EuclideanDistance, RadialDistance)
+        )
 
     def _diag(self, X, x_meas):
         ls, sigma = self._params_values()
@@ -179,12 +194,12 @@ class SquaredExponential(_RadialKernel):
 
     def _matrix(self, X, Y, x_meas, y_meas):
         ls, sigma = self._params_values()
-        fused = self._fused_matrix(X, Y, ls, sigma)
-        if fused is not None:
-            return fused
+        gram = self._triton_gram(X, Y, ls, sigma)
+        if gram is not None:
+            return gram
         metric = self.distance_metric
         if isinstance(metric, EuclideanDistance):
-            # XLA fast path: use d² directly, skipping sqrt+square.
+            # use d² directly, skipping sqrt+square
             d2 = metric.pairwise_squared(X, Y)
             safe = jnp.where(ls > 0.0, ls, 1.0)
             value = sigma * sigma * jnp.exp(-d2 / (safe * safe))

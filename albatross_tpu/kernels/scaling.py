@@ -1,6 +1,6 @@
 """Input-dependent scaling terms.
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/covariance_functions/scaling_function.hpp:18-231:
 k'(x, y) = s(x) · k(x, y) · s(y) with a deterministic scaling function s.
 

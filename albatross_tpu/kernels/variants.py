@@ -1,6 +1,6 @@
 """Mixed (variant) feature types as tagged batches.
 
-TPU-native re-design of the reference's variant-feature support
+JAX re-design of the reference's variant-feature support
 (/root/reference/include/albatross/src/covariance_functions/callers.hpp
  VariantForwarder, 196-592; utils/variant_utils.hpp).
 

@@ -1,6 +1,6 @@
 """Adapted models: feature conversion in front of any model.
 
-TPU-native counterpart of the reference's model-adapter pattern
+JAX counterpart of the reference's model-adapter pattern
 (tests/test_model_adapter.cc TestAdaptedModel: convert features — possibly
 using the adapter's own parameters — then delegate fit/predict to a base
 model).  Here it is a generic wrapper instead of a CRTP subclass: the

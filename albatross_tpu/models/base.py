@@ -1,6 +1,6 @@
 """Model protocol: ModelBase, FitModel, lazy Prediction.
 
-TPU-native re-design of the reference model core
+JAX re-design of the reference model core
 (/root/reference/include/albatross/src/core/model.hpp:22-168,
  fit_model.hpp:18-114, prediction.hpp:32-224).
 

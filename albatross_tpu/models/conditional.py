@@ -1,6 +1,6 @@
 """ConditionalGaussian: a model over index sets of a fixed (prior, truth).
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/models/conditional_gaussian.hpp:17-110.
 
 Fit = condition on a subset of indices; predict = conditional at other

@@ -1,6 +1,6 @@
 """Exact Gaussian-process regression.
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/models/gp.hpp:42-550.
 
 Semantics mirror the reference:
@@ -15,7 +15,7 @@ Semantics mirror the reference:
 * log_likelihood: −NLL(y − m(X), K(X,X)) + Σ prior log-pdfs (gp.hpp:420-451);
   note the reference does NOT add target variance here, and neither do we.
 
-The factorization is Cholesky (XLA blocked kernel on the MXU) with an
+The factorization is a blocked Cholesky (ops/blocked_cholesky.py) with an
 explicit jitter knob instead of Eigen's pivoted LDLT.  Everything is a
 pytree: ``jax.jit``/``jax.grad`` of fit→predict→NLML pipelines work directly,
 which is how hyperparameter tuning (albatross_tpu.tuning) gets exact
@@ -126,11 +126,12 @@ def _make_gram_col_fn(x2, ls, sigma, diag_add, profile):
     """col_fn(j0, b) -> active rows j0..n of training-covariance column
     panel [j0, j0+b), diagonal (noise + jitter) included — the lazy gram
     producer the fused factorizations consume."""
-    from ..ops.pallas_gram import _xla_reference_gram
+    from ..kernels.distances import squared_distances
+    from ..kernels.radial import radial_profile
 
     def col_fn(j0, b):
-        col = _xla_reference_gram(
-            x2[j0:], x2[j0 : j0 + b], ls, sigma, profile
+        col = radial_profile(
+            profile, squared_distances(x2[j0:], x2[j0 : j0 + b]), ls, sigma
         )
         idx = jnp.arange(b)
         return col.at[idx, idx].add(jnp.asarray(diag_add, col.dtype))
@@ -192,6 +193,54 @@ def _fused_gram_nlml(
     return 2.0 * accurate_sum_of_logs(diag), white
 
 
+def match_fused_training_cov(kernel):
+    """Pattern-match ``radial + diag-only terms`` and return
+    (radial_leaf, ls, sigma, diag_scalar) or None.
+
+    Recognized diag terms: IndependentNoise/Nugget with assume_unique (an
+    equality mask would need the N² comparison the fusion avoids), each
+    optionally wrapped in measurement_only — live in the training
+    covariance, which is what the lazy-gram NLML builds.
+    """
+    from ..kernels.base import SumKernel
+    from ..kernels.distances import EuclideanDistance
+    from ..kernels.measurement import MeasurementOnly
+    from ..kernels.noise import _EqualityNoise
+    from ..kernels.radial import _RadialKernel
+
+    terms = []
+
+    def flatten(node):
+        if isinstance(node, SumKernel):
+            flatten(node.lhs)
+            flatten(node.rhs)
+        else:
+            terms.append(node)
+
+    flatten(kernel)
+    radial = None
+    diag_scalar = 0.0
+    for term in terms:
+        if isinstance(term, MeasurementOnly):
+            term = term.sub
+        if isinstance(term, _RadialKernel):
+            if radial is not None or not term._profile_name:
+                return None
+            if not isinstance(term.distance_metric, EuclideanDistance):
+                return None
+            radial = term
+        elif isinstance(term, _EqualityNoise):
+            if not getattr(term, "assume_unique", False):
+                return None
+            diag_scalar = diag_scalar + term._sigma2()
+        else:
+            return None
+    if radial is None:
+        return None
+    ls, sigma = radial._params_values()
+    return radial, ls, sigma, diag_scalar
+
+
 class GaussianProcess(ModelBase):
     """Exact GP regression model (gp.hpp:170-537)."""
 
@@ -232,22 +281,20 @@ class GaussianProcess(ModelBase):
         return self.covariance_function(measurements)
 
     def _training_covariance(self, measurements, target_variance):
-        """Training covariance incl. the diagonal epilogue, using the fused
-        single-pass pallas path when the kernel/config qualify (the gram,
-        noise σ², target variance and jitter land in one HBM write —
-        ops/pallas_gram.py fused_training_covariance)."""
-        from ..kernels.features import Measurement
-        from ..ops.pallas_gram import fused_training_covariance
+        """(K + diag(target_variance), jitter_applied).  On a GPU, high-D
+        features matching the fused pattern take one Triton kernel pass
+        that writes the gram, noise σ², target variance and jitter together
+        (ops/triton_gram.py training_gram); jitter is then already in."""
+        pieces = self._training_cov_fused_pieces(measurements)
+        if pieces is not None:
+            from ..ops.triton_gram import training_gram, use_triton_gram
 
-        if isinstance(measurements, Measurement):
-            fused = fused_training_covariance(
-                self.covariance_function,
-                measurements.value,
-                target_variance,
-                self.jitter,
-            )
-            if fused is not None:
-                return fused, True  # jitter already folded in
+            x2, ls, sigma, diag_add, profile = pieces
+            if use_triton_gram(x2, x2):
+                diag = jnp.full(x2.shape[:1], diag_add, x2.dtype)
+                if target_variance is not None:
+                    diag = diag + target_variance
+                return training_gram(x2, ls, sigma, diag, profile), True
         cov = self.covariance_function(measurements)
         if target_variance is not None:
             cov = cov + jnp.diag(target_variance)
@@ -358,20 +405,15 @@ class GaussianProcess(ModelBase):
         """Pattern-match the training covariance for the fused-gram NLML
         (config.CHOLESKY_ALGORITHM "left"/"right_fused"): returns
         ``(x2, ls, sigma, diag_add, profile)`` when the kernel is radial +
-        diag-only noise over a single low-D array feature batch — the same
-        pattern the pallas fusion recognizes — else None.  The pieces are
-        plain arrays/floats so the jitted wrapper ``_fused_gram_nlml`` can
-        take them as arguments (a stable jit cache keyed on shapes, not on
-        a fresh closure per call)."""
+        diag-only noise over a single array feature batch, else None.  The
+        pieces are plain arrays/floats so the jitted wrapper
+        ``_fused_gram_nlml`` can take them as arguments (a stable jit cache
+        keyed on shapes, not on a fresh closure per call)."""
         from ..kernels.features import Measurement
-        from ..ops.pallas_gram import match_fused_training_cov
 
         if not isinstance(measurements, Measurement):
             return None
-        matched = match_fused_training_cov(
-            self.covariance_function, measurements.value,
-            for_measurements=True,
-        )
+        matched = match_fused_training_cov(self.covariance_function)
         if matched is None:
             return None
         radial, ls, sigma, diag_scalar = matched
@@ -380,11 +422,6 @@ class GaussianProcess(ModelBase):
             return None
         x = leaves[0]
         x2 = x[:, None] if x.ndim == 1 else x
-        if x2.shape[-1] > 8:
-            # high-D grams use the exact pallas kernel (the closed-form
-            # column builder would fall back to the cancelling matmul
-            # trick) — keep the materialized path there
-            return None
         diag_add = diag_scalar + self.jitter
         return x2, ls, sigma, diag_add, radial._profile_name
 
@@ -405,18 +442,14 @@ class GaussianProcess(ModelBase):
         )
         from .. import config
 
-        # memory auto-upgrade: the materialized-covariance path's first
-        # measured OOM on a 16 GB chip is N=57344, while the lazy-gram
-        # right_fused loop runs past N=100k (SCALE_CEILING.json) — so at
-        # CHOLESKY_FUSED_MIN_N and above, a default-config log_likelihood
-        # switches loop order instead of dying.
+        # memory auto-upgrade: where the materialized covariance would not
+        # fit the device, a default-config log_likelihood switches to the
+        # lazy-gram right_fused loop instead of dying
         algorithm = config.CHOLESKY_ALGORITHM
-        if (
-            algorithm == "right"
-            and config.CHOLESKY_FUSED_MIN_N
-            and zero_mean.shape[0] >= config.CHOLESKY_FUSED_MIN_N
-        ):
-            algorithm = "right_fused"
+        if algorithm == "right":
+            min_n = config.resolved_fused_min_n(zero_mean.dtype.itemsize)
+            if min_n and zero_mean.shape[0] >= min_n:
+                algorithm = "right_fused"
         if (
             algorithm in ("left", "right_fused")
             and config.CHOLESKY_PRECISION != "double_word"
@@ -472,10 +505,9 @@ class GaussianProcess(ModelBase):
             # inverses, and the NLML only needs the panel diagonals +
             # whitened vector, so the final O(N²) factor write is skipped
             # (ops/linalg.py nlml_terms).  Gradients go through XLA
-            # autodiff — a closed-form custom VJP (potri-style explicit
-            # inverse) was measured SLOWER on v5e (2.81x vs 2.69x forward
-            # at N=20480: its backward is n³ GEMM flops vs autodiff's
-            # 2n³/3) and less accurate; see ops/nlml.py.
+            # autodiff: a closed-form custom VJP (potri-style explicit
+            # inverse) does n³ backward GEMM flops against autodiff's
+            # 2n³/3 and was less accurate; see ops/nlml.py.
             log_det, white = CholeskyFactor.nlml_terms(
                 cov, zero_mean, jitter=jitter, assume_symmetric=True
             )

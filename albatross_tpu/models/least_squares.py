@@ -1,6 +1,6 @@
 """Least-squares / linear-regression models.
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/models/least_squares.hpp:46-133.
 """
 

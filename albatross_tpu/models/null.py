@@ -1,6 +1,6 @@
 """NullModel: zero mean, huge variance — a fallback/baseline.
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/models/null_model.hpp:30-79.
 """
 

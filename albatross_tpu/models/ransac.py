@@ -1,6 +1,6 @@
 """RANSAC outlier rejection as a meta-model.
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/models/ransac.hpp:23-526 and
 ransac_gp.hpp:21-200.
 
@@ -323,7 +323,7 @@ def _batched_scores(conditional, cand_indices, idx_mat, inlier_metric):
     """(K, G) inlier-metric matrix: every candidate fit is a fixed-shape
     conditioning of the one precomputed prior (ransac_gp.hpp:117-180), so
     all K fits and all K·G group scores run as a single vmapped program —
-    batched Cholesky + batched conditionals on the MXU, replacing the
+    batched Cholesky + batched conditionals, replacing the
     reference's serial per-iteration loop (ransac.hpp:172-258)."""
     import jax
     import jax.numpy as jnp

@@ -1,6 +1,6 @@
 """Sparse Gaussian-process regression (FITC / PITC).
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/models/sparse_gp.hpp:20-712.
 
 Method (Snelson & Ghahramani FITC / Quiñonero-Candela & Rasmussen PITC) with
@@ -15,7 +15,7 @@ sparse_gp.hpp:126-231):
               with Q_sqrt = K_uu^{-1/2} K_u*, S_sqrt = R^{-ᵀ} K_u*
     NLML via the matrix determinant lemma (sparse_gp.hpp:538-603).
 
-TPU-first differences from the reference:
+Differences from the reference:
 * the per-group block computations (K_ff blocks, Q_ff blocks, block Cholesky,
   block solves) are *batched* over the group axis — one vmapped Cholesky
   instead of a ThreadPool loop (ops/block.py);
@@ -25,7 +25,7 @@ TPU-first differences from the reference:
   and the reference's own R-diagonal inflation safeguard
   (sparse_gp.hpp:348-352, details::cSparseRNugget) is applied when the
   numerical rank drops.  This matches the reference's SPQR-free behavior
-  while staying MXU-friendly.
+  while staying GEMM-friendly.
 """
 
 from __future__ import annotations

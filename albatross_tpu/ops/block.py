@@ -1,12 +1,12 @@
 """Block-structured solvers.
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/linalg/block_diagonal.hpp:24-313 and
 block_symmetric.hpp:36-120.
 
 ``BlockDiagonal`` stacks its blocks into one (G, b, b) tensor (identity-padded
 to a shared size) so factorization and solves are *batched* Cholesky /
-triangular-solve calls — XLA turns these into parallel MXU work, replacing
+triangular-solve calls — XLA turns these into parallel batched work, replacing
 the reference's per-block ThreadPool loop.  ``BlockSymmetric`` implements the
 Schur-complement 2×2 solve used by incremental GP updates.
 """
@@ -205,7 +205,7 @@ class BlockDiagonalCholesky:
 
     def rcond(self, max_iterations: int = 5) -> float:
         """Reciprocal L1 condition estimate, 1/(||A||₁·est‖A⁻¹‖₁), via
-        Hager's one-norm estimator driven by block solves — the TPU
+        Hager's one-norm estimator driven by block solves — the batched
         re-design of Eigen's rcond_estimate_helper
         (block_diagonal.hpp:220-228).
 
@@ -238,7 +238,7 @@ class DiagonalCholesky:
     """Degenerate all-singleton-blocks case (FITC): A = diag(d).
 
     Same capability surface as BlockDiagonalCholesky but fully vectorized —
-    every solve is an elementwise divide on the VPU.
+    every solve is an elementwise divide.
     """
 
     sqrt_diag: jax.Array  # (n,)

@@ -1,6 +1,6 @@
 """Numerical diagnostics for ill-conditioned covariances.
 
-TPU-native counterpart of
+JAX counterpart of
 /root/reference/include/albatross/src/linalg/print_eigen_directions.hpp:23-100:
 dump the dominant entries of the smallest/largest eigenvectors so a user can
 see *which features* drive near-singularity.

@@ -1,12 +1,11 @@
 """Dense factorizations and solve helpers.
 
-TPU-native replacement for the reference's Eigen LDLT machinery
+JAX replacement for the reference's Eigen LDLT machinery
 (/root/reference/include/albatross/src/eigen/serializable_ldlt.hpp:19-217).
 
-The reference relies on pivoted LDLT for robustness; on TPU the idiomatic
-factorization is a (blocked, MXU-tiled) Cholesky — XLA lowers
-``lax.linalg.cholesky`` to a blocked kernel — combined with an explicit
-jitter/nugget policy for conditioning.  ``CholeskyFactor`` exposes the same
+The reference relies on pivoted LDLT for robustness; here the
+factorization is a blocked, GEMM-rich Cholesky (ops/blocked_cholesky.py)
+combined with an explicit jitter/nugget policy for conditioning.  ``CholeskyFactor`` exposes the same
 capability surface as ``SerializableLDLT``: solve, sqrt_solve, log-det,
 inverse diagonal and per-group inverse blocks (the engine of fast LOO/LOGO
 cross-validation).
@@ -25,13 +24,11 @@ from jax.scipy.linalg import solve_triangular
 def _sum_of_logs(diag: jnp.ndarray) -> jnp.ndarray:
     """2 Σ log dᵢ for a Cholesky diagonal.
 
-    In f32 this routes through ops.compensated.accurate_log: TPU's builtin
-    f32 log is a *biased* ~100×-ulp approximation, and the bias was
-    measured as the dominant on-chip NLML error (2.3e-6 rel at N=8192 —
-    larger than the whole factorization's 2.5e-8).  The replacement is a
-    handful of elementwise VPU ops on an (n,) vector — free next to the
-    O(n³) factorization — so the fast path gets it too, not just the
-    compensated mode."""
+    In f32 this routes through ops.compensated.accurate_log, a sub-ulp log
+    whose error cannot bias the N-term sum the way an approximate builtin
+    log can.  It is a handful of elementwise ops on an (n,) vector — free
+    next to the O(n³) factorization — so the fast path gets it too, not
+    just the compensated mode."""
     from .compensated import accurate_sum_of_logs
 
     return 2.0 * accurate_sum_of_logs(diag)
@@ -62,7 +59,7 @@ class CholeskyFactor:
         size threshold, and the layout choice, so the fused-NLML path can
         never factorize a different matrix than the fit path.
 
-        ``assume_symmetric`` skips the 0.5(K+Kᵀ) pass — an N² HBM round
+        ``assume_symmetric`` skips the 0.5(K+Kᵀ) pass — an N² memory round
         trip — for inputs already bitwise symmetric (covariances from
         CovarianceFunction.__call__, which symmetrizes unless the kernel is
         symmetric-exact by construction)."""
@@ -72,15 +69,14 @@ class CholeskyFactor:
         if jitter:
             K = K + jitter * jnp.eye(K.shape[0], dtype=K.dtype)
         if K.shape[0] > 2048:
-            # GEMM-rich blocked factorization, column-panel layout (falls
-            # back to the rows layout for non-divisible N): ~4x XLA's
-            # builtin on TPU (see ops/blocked_cholesky.py)
+            # GEMM-rich blocked factorization, column-panel layout (pads
+            # non-divisible N to the panel boundary; ops/blocked_cholesky.py)
             from .. import config
             from .blocked_cholesky import blocked_cholesky_cols
 
             if config.CHOLESKY_PRECISION == "double_word":
                 # maximum-fidelity mode: double-word-carry trailing matrix
-                # + exact-product (X9) GEMMs (ops/compensated.py)
+                # + exact-product GEMMs (ops/compensated.py)
                 from .compensated import blocked_cholesky_dw
 
                 return blocked_cholesky_dw(K, rhs=rhs)
@@ -128,7 +124,7 @@ class CholeskyFactor:
         ``rhs`` must be a 1-D (n,) vector.  For large N the whitening rides
         the blocked factorization (the panel inverses are reused for
         forward substitution), avoiding a separate full-size single-RHS
-        triangular solve — the latency-bound step in NLML evaluation on TPU
+        triangular solve — a latency-bound step in NLML evaluation
         (likelihood.hpp:38-47 computes the same quantities as two stages).
         """
         rhs = jnp.asarray(rhs)
@@ -156,14 +152,14 @@ class CholeskyFactor:
 
         The NLML consumes only the log-determinant and the whitened vector;
         for large N the blocked path keeps the factor as column panels and
-        skips the final (n, n) assembly + tril — an O(N²) HBM round trip
+        skips the final (n, n) assembly + tril — an O(N²) memory round trip
         saved on the hyperparameter-optimization hot loop.  Semantically
         identical to ``factorize_whiten`` + ``log_determinant``.
 
         ``col_fn(j0, b)`` (optional): active-row column-panel builder for
         the left-looking algorithm (config.CHOLESKY_ALGORITHM="left") —
         lets the gram fuse into the factorization GEMMs so the N² matrix
-        never gets its own HBM write.  Must already include every
+        never gets its own memory write.  Must already include every
         diagonal term; ``K``/``jitter`` are ignored when it engages.
         """
         rhs = jnp.asarray(rhs)
@@ -197,7 +193,7 @@ class CholeskyFactor:
             if col_fn is None:
                 # materialized-K left-looking: route through the module
                 # jitted wrapper so an eager caller gets ONE dispatch
-                # instead of the unrolled panel loop (round-4 advisor)
+                # instead of the unrolled panel loop
                 from .blocked_cholesky import left_nlml_from_K
 
                 K = jnp.asarray(K)
@@ -215,8 +211,8 @@ class CholeskyFactor:
                 return _sum_of_logs(diag), white
             # explicit column builder: honor the configured loop order —
             # "left" = one big GEMM per panel; anything else = the
-            # right-looking cols loop with lazy gram columns (the loop
-            # order that wins on TPU).  col_fn is a closure, so these run
+            # right-looking cols loop with lazy gram columns.  col_fn is a
+            # closure, so these run
             # un-jitted — call nlml_terms(col_fn=...) inside jit (the GP's
             # log_likelihood routes through its own jitted wrapper).
             if _config.CHOLESKY_ALGORITHM == "left":
@@ -391,17 +387,17 @@ class CholeskyFactor:
 
     def to_direct_inverse(self, refine_steps: int = 2) -> "DirectInverse":
         """Serving-mode representation: one O(N³) explicit inverse up front,
-        then every solve is a GEMM at MXU speed instead of two bandwidth-
+        then every solve is a GEMM instead of two bandwidth-
         bound triangular solves (the reference's DirectInverse covariance
         representation, representations.hpp:85-101).
 
         ``refine_steps`` Newton–Schulz iterations X ← X + X(I − A X) at
-        precision=HIGHEST polish the inverse: on TPU the triangular solves
-        that build it run as single-pass-bf16 matmuls internally, and for
-        ill-conditioned K the raw inverse yields predictive variances off by
-        O(1e-2) — even negative (measured at N=8192, kappa~1e6).  Measured
-        max|I−AX| per step on v5e: 5.4e-2 → 9.5e-4 → 4.3e-5 (floor); two
-        steps reach the precision floor at one-time construction cost.
+        precision=HIGHEST polish the inverse: the triangular solves that
+        build it may run their internal matmuls at reduced precision, and
+        for ill-conditioned K a raw inverse yields predictive variances off
+        by O(1e-2) — even negative.  Each step squares the residual
+        max|I−AX| until the precision floor, at one-time construction
+        cost.
         """
         X = self.inverse()
         n = X.shape[0]
@@ -415,7 +411,7 @@ class CholeskyFactor:
                     A, X, precision=jax.lax.Precision.HIGHEST
                 )
                 # Newton–Schulz contracts only while ||I−AX||₂ < 1; for very
-                # ill-conditioned K the bf16-built starting inverse can sit
+                # ill-conditioned K a reduced-precision starting inverse can sit
                 # outside the basin, where the step would *square the error
                 # up*.  Gate on max|R| — not a proof of contraction (the
                 # spectral norm can exceed max-abs), but it stops the
@@ -435,7 +431,7 @@ class CholeskyFactor:
     # -- inverse pieces (engine of fast LOO/LOGO CV) ------------------------
     def _tri_inverse(self) -> jnp.ndarray:
         """L⁻¹ — GEMM-composed for large N (XLA's TriangularSolve against
-        an identity is latency-bound on TPU; see ops/nlml.py)."""
+        an identity is latency-bound; see ops/nlml.py)."""
         from .nlml import tri_inverse_full
 
         return tri_inverse_full(self.L)
@@ -457,7 +453,7 @@ class CholeskyFactor:
         """Diagonal blocks (A⁻¹)_gg for each index group
         (serializable_ldlt.hpp:137-175).
 
-        One GEMM-composed triangular inverse (a big batched MXU-friendly
+        One GEMM-composed triangular inverse (a big batched GEMM-rich
         operation replacing the reference's per-column thread pool), then a
         gather + small gram per group.
         """
@@ -484,14 +480,15 @@ class DirectInverse:
     def tree_unflatten(cls, _, children):
         return cls(children[0])
 
+    # Precision of the explicit-inverse GEMM: against an ill-conditioned K
+    # it cancels, so reduced-precision products show up directly in the
+    # predictive variances.  Full FP32: on an H100 the TF32 default put
+    # the variances 0.28 off at N=8192 (HIGHEST: 3e-4; PERF.md).
+    solve_precision = jax.lax.Precision.HIGHEST
+
     def solve(self, rhs):
-        # precision=HIGH (bf16x3 passes) on TPU: the explicit-inverse GEMM
-        # against an ill-conditioned K cancels catastrophically in a single
-        # bf16 pass (measured: predictive variances off by O(0.1) at
-        # N=8192, kappa~1e6), while bf16x3 recovers ~f32 accuracy at ~1/3
-        # MXU throughput — still ~8x the triangular-solve predict path.
         return jnp.matmul(
-            self.inverse_matrix, rhs, precision=jax.lax.Precision.HIGH
+            self.inverse_matrix, rhs, precision=self.solve_precision
         )
 
 

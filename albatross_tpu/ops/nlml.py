@@ -1,8 +1,8 @@
 """GEMM-composed explicit inverses from a Cholesky factor (LAPACK potri).
 
-XLA's TriangularSolve against an identity substitutes 128 columns at a time
-and is latency-bound on TPU; these routines rebuild the same quantities from
-large MXU GEMMs instead:
+XLA's TriangularSolve against an identity substitutes a few columns at a
+time and is latency-bound; these routines rebuild the same quantities from
+large GEMMs instead:
 
     W    = L⁻¹   two-level blocked triangular inverse (tri_inverse_full)
     K⁻¹  = WᵀW   exploiting W's triangularity — n³/3 FLOPs in S large GEMMs
@@ -13,12 +13,10 @@ They power ``CholeskyFactor.inverse / inverse_diagonal / inverse_blocks``
 reference: serializable_ldlt.hpp:137-217) for large N.
 
 Negative result, recorded so it is not retried: a custom VJP for the NLML
-(backward = c_ld·K⁻¹ − c_q·ααᵀ built with these routines) was measured
-SLOWER than XLA autodiff through the blocked factorization on v5e at
-N=20480 — 2.81× vs 2.69× forward wall time — because its backward costs
-~n³ GEMM FLOPs (trtri 2n³/3 + lauum n³/3) while the autodiff adjoint costs
-~2n³/3; it was also slightly less accurate in f32 (explicit-inverse
-cancellation).  The fused autodiff path in models/gp.py stays.
+(backward = c_ld·K⁻¹ − c_q·ααᵀ built with these routines) costs ~n³
+backward GEMM FLOPs (trtri 2n³/3 + lauum n³/3) while the autodiff adjoint
+through the blocked factorization costs ~2n³/3, and it was slightly less
+accurate in f32 (explicit-inverse cancellation).  The fused autodiff path in models/gp.py stays.
 """
 
 from __future__ import annotations
@@ -103,7 +101,7 @@ def blocked_lauum(W: jnp.ndarray, block: int | None = None) -> jnp.ndarray:
     Row strip i of the lower triangle of M = WᵀW is one GEMM
         M[i, :i+1] = W[i:, i]ᵀ @ W[i:, :i+1]
     (rows above block i of the i-th block column are zero), so the whole
-    product is S large MXU GEMMs totalling n³/3 FLOPs instead of a dense n³.
+    product is S large GEMMs totalling n³/3 FLOPs instead of a dense n³.
     """
     n = W.shape[0]
     if n <= 2048:

@@ -1,21 +1,22 @@
 """Distributed blocked Cholesky and triangular solves.
 
-TPU-native replacement for the single-node Eigen LDLT at the heart of the
+JAX replacement for the single-node Eigen LDLT at the heart of the
 reference's exact GP (serializable_ldlt.hpp) — redesigned as a right-looking
 blocked factorization over a 1-D device mesh:
 
 * the matrix lives *row-panel-sharded*: device d owns rows
   [d·b, (d+1)·b) of the N×N SPD matrix (b = N / n_devices);
-* each step k all-gathers one N×b column panel over ICI, computes the b×b
+* each step k all-gathers one N×b column panel, computes the b×b
   diagonal Cholesky redundantly on every device (tiny), forms the panel
   column of L locally, and applies the rank-b trailing update to its own
-  rows — a local (b × N) GEMM that lands on the MXU;
+  rows — a local (b × N) GEMM;
 * total communication is G panels ≈ one pass over the matrix, the same
-  order as reading it once from HBM.
+  order as reading it once from device memory.
 
 The panel solves reuse the same layout: block forward/back substitution
 with one broadcast per panel.  All collectives are XLA primitives inside
-``shard_map`` (all_gather / psum) so they ride ICI.
+``shard_map`` (all_gather / psum), which XLA hands to the device
+interconnect (NCCL over NVLink on GPUs).
 """
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ def _local_chol_step(A_local, k, b, G, axis):
     L_kk = jnp.linalg.cholesky(diag)
 
     # full column panel of L below the diagonal: rows i>k get A_ik L_kk^{-T};
-    # the GEMM-composed inverse keeps the panel solve on the MXU (same
+    # the GEMM-composed inverse keeps the panel solve in GEMMs (same
     # two-level trick as the single-chip ops/blocked_cholesky.py)
     W = blocked_tri_inverse(L_kk, DEFAULT_PANEL_SUB)
     panel = col_full @ W.T  # (N, b)
@@ -267,7 +268,7 @@ def _tri_inverse_local(L_local, *, b: int, G: int, axis: str):
     Blocked forward recursion W[r, :r] = −W_rr (L[r, :r] @ W[:r, :r]):
     each round broadcasts the owner's (b, n) row panel of L (one psum),
     every device contracts it against its own W rows (a local (b, b, n)
-    GEMM on the MXU), and the owner finishes with its diagonal inverse.
+    GEMM), and the owner finishes with its diagonal inverse.
     Communication: 2 psums of (b, n) per round ≈ two passes over the
     matrix total.  Per-device W storage is (b, n) — the same as L.
     """

@@ -2,10 +2,11 @@
 
 The TP-analog decomposition from SURVEY.md §2's parallelism checklist: the
 N×N SPD matrix lives tile-sharded over a 2-D (R rows × C cols) device mesh —
-device (i, j) owns only its (N/R, N/C) tile, so pod-scale N is bounded by
-*total* HBM, not per-chip HBM (the 1-D row-panel layout in cholesky.py needs
-N²/R bytes per chip).  Replaces the capability of the reference's
-single-node Eigen LDLT (serializable_ldlt.hpp:19-217) at pod scale.
+device (i, j) owns only its (N/R, N/C) tile, so N is bounded by the
+*total* device memory, not one device's (the 1-D row-panel layout in
+cholesky.py needs N²/R bytes per device).  Replaces the capability of the
+reference's single-node Eigen LDLT (serializable_ldlt.hpp:19-217) past one
+device.
 
 Factorization (right-looking, panel width p dividing the tile width):
 
@@ -17,7 +18,7 @@ Factorization (right-looking, panel width p dividing the tile width):
          forms the panel of L via a GEMM against the blocked triangular
          inverse (p³ ≪ the trailing GEMM);
       3. each device applies the rank-p trailing update to its own tile:
-         one (br × p × bc) MXU GEMM, masked so finalized panels see zeros.
+         one (br × p × bc) GEMM, masked so finalized panels see zeros.
 
 Solves walk q-blocks (q = gcd(br, bc), so every diagonal q-block lives on
 exactly one device) with sharded state: each device carries only its (br, m)
@@ -257,7 +258,7 @@ def _wapply_local(W_local, rhs_local, *, br, bc, row_axis, col_axis):
     """y = W rhs with W tile-sharded and rhs/y row-sharded.
 
     One all-gather (assemble full rhs, the O(N·m) transient) + one local
-    (br × bc × m) MXU GEMM + one psum across the device row.
+    (br × bc × m) GEMM + one psum across the device row.
     """
     j = jax.lax.axis_index(col_axis)
     m = rhs_local.shape[1]
@@ -407,7 +408,7 @@ def _tri_inverse_2d_local(L_local, *, br, bc, R, row_axis, col_axis):
         W[r, :] = −W_rr (Σ_{d<r} L[r, d-block] @ W[d, :]),   W_rr = L_rr⁻¹:
     round r broadcasts the owner's (br, n) row panel of L (one psum + one
     all-gather), every earlier device row contracts its slice against its
-    own W tile (a local (br×br×bc) MXU GEMM), and one psum hands row r the
+    own W tile (a local (br×br×bc) GEMM), and one psum hands row r the
     total.  Per-device W storage is the (br, bc) tile; the only transient
     is the (br, n) broadcast panel — the same O(N·panel) class as the
     factorization itself.
@@ -473,7 +474,7 @@ def distributed_tri_inverse_2d(L, mesh, row_axis="data", col_axis="model"):
 
 
 def distributed_inverse_diagonal_2d(L, mesh, row_axis="data", col_axis="model"):
-    """diag(A⁻¹) from the tile-sharded factor — fast LOO CV at pod scale.
+    """diag(A⁻¹) from the tile-sharded factor — fast LOO CV past one device.
 
     diag(A⁻¹) = per-column squared norms of W = L⁻¹: the R-round tile-sharded
     triangular inverse (distributed_tri_inverse_2d) plus ONE psum — O(R)

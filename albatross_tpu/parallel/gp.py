@@ -1,12 +1,13 @@
-"""Mesh-distributed exact GP: fit / predict / NLML at pod scale.
+"""Mesh-distributed exact GP: fit / predict / NLML past one device.
 
-This is the north-star path (BASELINE.md): exact GP at N=100k where the
-N×N covariance never exists on one chip.  The pipeline is
+Exact GP at N where the N×N covariance does not fit one device, and never
+exists on one.  The pipeline is
 
     sharded Gram (gram.py)  →  distributed blocked Cholesky (cholesky.py)
     →  panel-substitution solves  →  predictions / NLML
 
-with all collectives riding ICI.  ``DistributedCholesky`` exposes the same
+with collectives over the device interconnect.  ``DistributedCholesky``
+exposes the same
 capability surface as the dense ``CholeskyFactor`` so the single-chip and
 multi-chip paths share prediction code.
 """
@@ -86,7 +87,8 @@ class DistributedCholesky:
 class DistributedCholesky2D:
     """Tile-sharded (2-D mesh) Cholesky factor bound to its mesh.
 
-    Per-device bytes for the factor are N²/(R·C) — the pod-scale layout
+    Per-device bytes for the factor are N²/(R·C) — the layout for N past
+    one device
     (SURVEY.md §2 checklist: 2-D block sharding / TP analog)."""
 
     L: jax.Array  # (N, N), tile-sharded over (row_axis, col_axis)

@@ -2,7 +2,8 @@
 
 The capability-equivalent of the reference's ThreadPool knob
 (/root/reference/include/albatross/src/core/model.hpp:30-36 — its only
-parallelism) re-imagined for TPU: a ``jax.sharding.Mesh`` over ICI/DCN is the
+parallelism) re-imagined for accelerators: a ``jax.sharding.Mesh`` over the
+device interconnect is the
 unit of scale, and every parallel decomposition in the framework (row-sharded
 Gram assembly, distributed blocked Cholesky, fold/walker parallelism) is
 expressed against named mesh axes.

@@ -1,10 +1,10 @@
 """Multi-host orchestration helpers.
 
 The reference has no distributed backend at all (SURVEY.md §2.12); multi-host
-scale is a new first-class capability of the TPU build: jax.distributed over
-DCN for cross-host process groups, with the mesh layer (mesh.py) spanning
-all hosts' devices so the collectives in cholesky.py/gram.py ride ICI within
-a slice and DCN across slices.
+scale is a new first-class capability here: jax.distributed for cross-host
+process groups, with the mesh layer (mesh.py) spanning all hosts' devices
+so the collectives in cholesky.py/gram.py run over the interconnect within
+a host and the network across hosts.
 """
 
 from __future__ import annotations
@@ -21,8 +21,9 @@ def initialize_multihost(
 ) -> None:
     """Initialize jax.distributed (no-op for single-process runs).
 
-    On TPU pods the arguments are auto-detected from the environment; pass
-    them explicitly for CPU/GPU clusters.
+    Pass the arguments explicitly (coordinator ``host:port``, process
+    count, this process's id) unless the environment describes the
+    cluster to JAX; without either this is a single-process no-op.
     """
     if jax.process_count() > 1:
         return  # already initialized

@@ -3,7 +3,7 @@
 SURVEY.md §2 names "blockwise = PITC groups sharded across chips" as a
 first-class decomposition; the reference's scalable-N workhorse is the
 sparse fit (sparse_gp.hpp:377-404) whose tall QR runs on SuiteSparse SPQR's
-internal threading (spqr_utils.hpp:102-116).  The TPU-native design:
+internal threading (spqr_utils.hpp:102-116).  The design here:
 
 * K_fu assembly is row-sharded over the data axis (each device builds its
   own (n/D, m) panel — parallel/gram.py sharded_cross_gram);

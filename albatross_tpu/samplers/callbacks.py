@@ -1,6 +1,6 @@
 """Sampler callbacks.
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/samplers/callbacks.hpp:18-100.
 """
 

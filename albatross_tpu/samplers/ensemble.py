@@ -1,6 +1,6 @@
 """Ensemble MCMC: affine-invariant (Goodman–Weare) stretch move.
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/samplers/ensemble.hpp:44-186 and
 initialization.hpp:110-165.
 
@@ -8,7 +8,7 @@ The reference updates walkers one at a time on a single thread (each proposal
 a full O(n³) NLML).  Here the walk runs in the model's *tunable space* with
 the standard parallel two-half scheme: each half proposes against the other
 half simultaneously, so every iteration is two *vmapped* batches of log-prob
-evaluations — batched gram + batched Cholesky on the MXU, and the whole chain
+evaluations — batched gram + batched Cholesky, and the whole chain
 is one `lax.scan`.  Walkers shard across devices via the mesh layer
 (albatross_tpu.parallel) for multi-chip chains.
 
@@ -261,7 +261,7 @@ def ensemble_sampler_from_model(
 
     Pass a ``jax.sharding.Mesh`` to shard the walker batch across devices:
     each chip evaluates its walkers' NLMLs (batched gram + Cholesky)
-    locally — chain parallelism over ICI, the capability the reference's
+    locally — chain parallelism across devices, the capability the reference's
     serial walker loop could never have (SURVEY.md §2.12 checklist).
     """
     if isinstance(key, int):

@@ -1,6 +1,6 @@
 """Checkpointing: save/load of models, fits and sampler state.
 
-TPU-native re-design of the reference's cereal-based serialization
+JAX re-design of the reference's cereal-based serialization
 (/root/reference/include/albatross/src/cereal/*, SURVEY.md §2.11): the
 reference archives every fit type (params+priors, LDLT internals, SPQR
 structs) in 4 formats with zstd-compressed matrix payloads and explicit
@@ -61,7 +61,7 @@ class _MeshAwarePickler(pickle.Pickler):
     """Externalizes ``jax.sharding.Mesh`` nodes (they hold live Device
     handles, which cannot — and should not — be pickled): a mesh is stored
     as its (axis_names, device_grid_shape) signature and rebound to the
-    loading process's own devices at restore time.  The TPU analog of the
+    loading process's own devices at restore time.  The analog of the
     reference checkpointing compute-topology-free state (cereal never
     archives thread pools either)."""
 

@@ -1,6 +1,6 @@
 """Byte-payload compression helpers.
 
-TPU-native counterpart of the reference's zstd wrapper
+JAX counterpart of the reference's zstd wrapper
 (/root/reference/include/albatross/src/utils/compress.hpp, exercised by
 tests/test_compression.cc): same three-call surface — ``compress``,
 ``decompress`` (raises on garbage), ``maybe_decompress`` (returns a success

@@ -1,6 +1,6 @@
 """Chi-squared CDF.
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/stats/chi_squared.hpp:29-80.
 """
 

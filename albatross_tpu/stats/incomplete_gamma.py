@@ -2,7 +2,7 @@
 
 Capability-equivalent of
 /root/reference/include/albatross/src/stats/incomplete_gamma.hpp:36-140
-(which hand-rolls quadrature + continued-fraction branches).  On TPU the
+(which hand-rolls quadrature + continued-fraction branches).  In JAX the
 idiomatic path is XLA's native ``igamma`` kernel — fully traceable and
 differentiable — so we delegate rather than re-deriving the series.
 """

@@ -1,6 +1,6 @@
 """Finite-difference gradients (API parity).
 
-TPU-native counterpart of
+JAX counterpart of
 /root/reference/include/albatross/src/tune/finite_difference.hpp:18-100.
 
 JAX autodiff makes this mostly obsolete — gradient tuners here use exact

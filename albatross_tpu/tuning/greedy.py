@@ -1,6 +1,6 @@
 """Greedy coordinate-descent coarse tuner.
 
-TPU-native re-design of
+JAX re-design of
 /root/reference/include/albatross/src/tune/greedy_tuner.hpp:14-201:
 per-parameter log-spaced candidate queries within prior bounds, pick the
 best, iterate.  Candidate evaluations for one parameter are *batched* with

@@ -1,6 +1,6 @@
 """Chebyshev polynomial evaluation and basis matrices.
 
-TPU-native counterpart of
+JAX counterpart of
 /root/reference/include/albatross/src/polynomial/chebyshev.hpp:23-140.
 Traceable (jnp) so Chebyshev feature maps can live inside jitted models.
 """

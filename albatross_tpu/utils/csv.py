@@ -1,6 +1,6 @@
 """CSV I/O for datasets and predictions.
 
-TPU-native counterpart of
+JAX counterpart of
 /root/reference/include/albatross/src/utils/csv_utils.hpp:29-270 (write side)
 and the fast-cpp-csv-parser usage in the reference examples (read side).
 

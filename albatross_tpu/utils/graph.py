@@ -1,6 +1,6 @@
 """Generic graph utilities and minimum spanning tree.
 
-TPU-native counterpart of
+JAX counterpart of
 /root/reference/include/albatross/src/graph/minimum_spanning_tree.hpp:20-287
 (Kruskal with union-find; used for e.g. differencing networks).  Host-side
 combinatorial code — this feeds *structure* (which pairs to difference) to

@@ -1,7 +1,7 @@
 """Profiling and tracing helpers.
 
 The reference's introspection story is CallTrace + ostream logs (SURVEY §5.1);
-the TPU equivalent is the jax profiler: named scopes label the hot ops in
+the equivalent here is the jax profiler: named scopes label the hot ops in
 xprof/perfetto traces, and ``trace`` captures a profile directory viewable
 with tensorboard or ui.perfetto.dev.
 """

@@ -1,6 +1,6 @@
 """Random sampling utilities.
 
-TPU-native counterpart of
+JAX counterpart of
 /root/reference/include/albatross/src/utils/random_utils.hpp:20-160.
 Device-side draws use jax PRNG; host-side index sampling uses numpy.
 """

@@ -1,5 +1,6 @@
-"""f32 + debug-NaN smoke lane: core flows must run NaN-free in the TPU
-numerics regime (x64 OFF, jax_debug_nans ON).  A NaN anywhere raises."""
+"""f32 + debug-NaN smoke lane: core flows must run NaN-free in the
+accelerator numerics regime (x64 OFF, jax_debug_nans ON).  A NaN anywhere
+raises."""
 
 import os
 
@@ -7,7 +8,7 @@ os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 
 import jax
 
-jax.config.update("jax_debug_nans", True)  # x64 stays OFF: f32 like TPU
+jax.config.update("jax_debug_nans", True)  # x64 stays OFF: f32 like the GPU
 
 import numpy as np
 import jax.numpy as jnp

@@ -1,24 +1,23 @@
 """NLML accuracy-mode walkthrough.
 
 The reference gets 1e-15-class NLML accuracy for free from Eigen's f64
-LDLT (serializable_ldlt.hpp:19-80); TPUs have no f64, so albatross_tpu
-ships an accuracy ladder instead (ops/compensated.py, config knobs):
+LDLT (serializable_ldlt.hpp:19-80); an f32 pipeline does not, so
+albatross_tpu ships an accuracy ladder (ops/compensated.py, config knobs):
 
   1. plain f32             — fastest; ~1e-4-class relative NLML error at
                              GP conditioning (f32 solve/reduction floor);
   2. NLML_COMPENSATED      — double-word (two-float) reductions + one
                              iterative-refinement step with a double-word
                              residual on the quadratic term;
-  3. CHOLESKY_PRECISION    — "high"/"highest": multi-pass factorization
-                             GEMMs; "double_word": double-word-carry
-                             trailing matrix + exact-product BF16x9 GEMMs
-                             (TPU; on CPU the GEMM products are already
-                             exact so only the carry applies).
+  3. CHOLESKY_PRECISION    — "high"/"highest": that matmul precision on
+                             every factorization GEMM (on a GPU "highest"
+                             is full FP32, the default may be TF32);
+                             "double_word": double-word-carry trailing
+                             matrix + exact-product GEMMs.
 
 This example builds a moderately ill-conditioned GP covariance, computes
 the NLML in every mode, and prints each mode's relative error against an
-f64 oracle.  On CPU the oracle is exact f64; the same script structure
-runs on-chip in benchmarks/exp_compensated_tpu.py.
+f64 oracle.  chip_smoke.py's phase f runs the accuracy mode on the GPU.
 
 Run:  python examples/accuracy.py [--n 3000]
 """
@@ -76,9 +75,8 @@ def main() -> int:
         ("compensated", None, True, False),
         ("compensated + chol=highest", "highest", True, False),
         # XLA:CPU's fusion codegen breaks error-free transformations under
-        # jit (TPU preserves them — see tests/test_compensated.py's
-        # canary), so the double-word row runs eagerly on CPU to show the
-        # mode's true accuracy
+        # jit (see tests/test_compensated.py's canary), so the double-word
+        # row runs eagerly on CPU to show the mode's true accuracy
         ("compensated + chol=double_word", "double_word", True, True),
     ]
     import contextlib

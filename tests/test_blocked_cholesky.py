@@ -178,10 +178,8 @@ def test_fused_panel_factorizer_matches_builtin(rng):
 def test_left_looking_matches_right_looking(rng):
     """config.CHOLESKY_ALGORITHM="left" (one large GEMM per panel, gram
     columns fed lazily) must reproduce the right-looking NLML terms and
-    gradients (f64: to reduction-order tolerance).  On-chip the left
-    layout measured SLOWER (73.4 vs 99.6 TF/s at N=28672 — XLA:TPU
-    materializes the big-buffer slices), so "right" stays the default;
-    the algorithm remains available and correct."""
+    gradients (f64: to reduction-order tolerance).  "right" stays the
+    default; the algorithm remains available and correct."""
     from albatross_tpu import config
     from albatross_tpu.ops.blocked_cholesky import blocked_cholesky_left
     from albatross_tpu.ops.linalg import CholeskyFactor
@@ -302,7 +300,7 @@ def test_right_fused_gram_gp_equivalence(rng):
     """config.CHOLESKY_ALGORITHM="right_fused" (right-looking loop, gram
     columns produced lazily at their first trailing update) must reproduce
     the materialized-covariance NLML and gradients — the op sequence is
-    identical, only the gram's HBM materialization is elided."""
+    identical, only the gram's materialization is elided."""
     import jax as _jax
 
     import albatross_tpu as ab
@@ -340,8 +338,7 @@ def test_right_fused_gram_gp_equivalence(rng):
 def test_fused_min_n_auto_upgrade(rng, monkeypatch):
     """config.CHOLESKY_FUSED_MIN_N auto-upgrades the default "right"
     algorithm to the lazy-gram "right_fused" loop at large N — the mode
-    that extends the single-chip ceiling past N=100k
-    (benchmarks/SCALE_CEILING.json) — and the upgraded path must (a)
+    that holds no N×N covariance — and the upgraded path must (a)
     actually engage and (b) match the materialized NLML."""
     import albatross_tpu as ab
     from albatross_tpu import config
@@ -380,8 +377,7 @@ def test_fused_min_n_auto_upgrade(rng, monkeypatch):
 def test_trailing_bf16_mode(rng):
     """trailing_precision="bf16" stores factored panels at bf16 for the
     trailing re-reads: f32 results stay close (the mode exists to halve
-    HBM traffic, and on TPU the default f32 GEMM rounds to bf16 inputs
-    anyway); f64 inputs ignore the knob bitwise."""
+    the panels' memory traffic); f64 inputs ignore the knob bitwise."""
     from albatross_tpu.ops.blocked_cholesky import blocked_cholesky_cols
 
     n, b = 2048, 512

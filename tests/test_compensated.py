@@ -180,10 +180,10 @@ def test_nlml_compensated_config_wiring(rng):
 
 def test_jit_eft_canary():
     """Record whether this backend's fused codegen preserves EFT chains under
-    jit (TPU: expected yes; XLA:CPU: known no — fusion fast-math).  The test
-    asserts only that the jit result is never WORSE than the plain dot —
-    exactness under jit is asserted when the canary shows the backend is
-    clean, so a TPU CI run would catch a regression."""
+    jit (XLA:CPU: known no — fusion fast-math).  The test asserts only that
+    the jit result is never WORSE than the plain dot — exactness under jit
+    is asserted when the canary shows the backend is clean, so a run on a
+    clean backend would catch a regression."""
     rng = np.random.default_rng(7)
     x = jnp.asarray(rng.standard_normal(4096) * 1e3, jnp.float32)
     y = jnp.asarray(rng.standard_normal(4096), jnp.float32)
@@ -290,10 +290,10 @@ def test_double_word_mode_is_differentiable(rng):
 
 
 def test_accurate_log_sub_ulp_and_unbiased(rng):
-    """accurate_log: the on-chip ladder pinned the NLML 'logdet floor' on
-    TPU's biased f32 log approximation (2.3e-6 rel at N=8192 while the
-    factorization itself was at 2.5e-8).  The replacement must be
-    sub-ulp per element and bias-free in the aggregate."""
+    """accurate_log stands in for a builtin f32 log whose per-element
+    error may be biased, and a biased error survives the N-term log-det
+    sum.  The replacement must be sub-ulp per element and bias-free in
+    the aggregate."""
     from albatross_tpu.ops.compensated import accurate_log
 
     vals = rng.uniform(0.05, 2.0, 50000).astype(np.float32)

@@ -81,7 +81,7 @@ def test_param_update_does_not_retrigger_trace(rng):
 
 def test_vmapped_fleet_of_gps(rng):
     """Fit/predict a fleet of independent GPs in one vmapped call — a
-    TPU-native capability with no reference analog (batched gram + batched
+    batched capability with no reference analog (batched gram + batched
     Cholesky across the fleet axis)."""
     from albatross_tpu import (
         RegressionDataset,

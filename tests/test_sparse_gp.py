@@ -247,7 +247,7 @@ def test_sparse_fit_predict_under_jit(rng):
 
 
 def test_sparse_fitc_f32_coincident_inducing_point_finite(rng):
-    """In pure f32 (the TPU default), an inducing point that coincides with
+    """In pure f32 (the accelerator default), an inducing point that coincides with
     a training point cancels the FITC residual k − q to ~0, and the f32
     rounding can land a few ulps negative — sqrt(a_diag) then NaN'd the
     whole fit (measured −3.5e-7 with UniformlySpacedInducingPoints, whose
@@ -258,7 +258,7 @@ def test_sparse_fitc_f32_coincident_inducing_point_finite(rng):
     import jax
     import albatross_tpu as ab
 
-    with jax.enable_x64(False):  # true TPU-default f32 mode
+    with jax.enable_x64(False):  # the accelerator-default f32 mode
         x = jnp.asarray(np.sort(rng.uniform(0, 10, 300)), jnp.float32)
         data = ab.RegressionDataset.create(x, jnp.sin(x))
         model = sparse_gp_from_covariance(
