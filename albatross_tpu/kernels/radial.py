@@ -71,20 +71,26 @@ def matern_52_covariance(distance, length_scale, sigma=1.0):
 def radial_profile(profile: str, d2, length_scale, sigma):
     """Radial profile ``profile`` (a ``_profile_name``) on SQUARED
     distances — the form the lazy-gram factorization builds its columns
-    with (d² avoids a sqrt for the squared exponential)."""
+    with (d² avoids a sqrt for the squared exponential).  A length scale
+    ≤ 0 gives 0, as the distance-based profiles above do."""
+    positive = length_scale > 0.0
+    ls = jnp.where(positive, length_scale, 1.0)
     s2 = sigma * sigma
     if profile == "squared_exponential":
-        return s2 * jnp.exp(-d2 / (length_scale * length_scale))
-    scaled = jnp.sqrt(jnp.maximum(d2, 0.0)) / length_scale
-    if profile == "exponential":
-        return s2 * jnp.exp(-scaled)
-    if profile == "matern_32":
-        sqrt3 = math.sqrt(3.0) * scaled
-        return s2 * (1.0 + sqrt3) * jnp.exp(-sqrt3)
-    if profile == "matern_52":
-        sqrt5 = math.sqrt(5.0) * scaled
-        return s2 * (1.0 + sqrt5 + sqrt5 * sqrt5 / 3.0) * jnp.exp(-sqrt5)
-    raise ValueError(f"unknown profile {profile}")
+        value = s2 * jnp.exp(-d2 / (ls * ls))
+    elif profile in ("exponential", "matern_32", "matern_52"):
+        scaled = jnp.sqrt(jnp.maximum(d2, 0.0)) / ls
+        if profile == "exponential":
+            value = s2 * jnp.exp(-scaled)
+        elif profile == "matern_32":
+            sqrt3 = math.sqrt(3.0) * scaled
+            value = s2 * (1.0 + sqrt3) * jnp.exp(-sqrt3)
+        else:
+            sqrt5 = math.sqrt(5.0) * scaled
+            value = s2 * (1.0 + sqrt5 + sqrt5 * sqrt5 / 3.0) * jnp.exp(-sqrt5)
+    else:
+        raise ValueError(f"unknown profile {profile}")
+    return jnp.where(positive, value, 0.0)
 
 
 class _RadialKernel(CovarianceFunction):

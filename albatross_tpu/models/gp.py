@@ -442,14 +442,7 @@ class GaussianProcess(ModelBase):
         )
         from .. import config
 
-        # memory auto-upgrade: where the materialized covariance would not
-        # fit the device, a default-config log_likelihood switches to the
-        # lazy-gram right_fused loop instead of dying
         algorithm = config.CHOLESKY_ALGORITHM
-        if algorithm == "right":
-            min_n = config.resolved_fused_min_n(zero_mean.dtype.itemsize)
-            if min_n and zero_mean.shape[0] >= min_n:
-                algorithm = "right_fused"
         if (
             algorithm in ("left", "right_fused")
             and config.CHOLESKY_PRECISION != "double_word"

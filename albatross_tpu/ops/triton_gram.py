@@ -34,9 +34,12 @@ from ..kernels.radial import radial_profile
 BLOCK_M = 128
 BLOCK_N = 64
 NUM_WARPS = 4
-# Features at and above this dimension take the kernel on a GPU; below it
-# the gram is a small part of any pipeline and XLA's fusion is kept.
-MIN_D = 9
+# Features summed per trip of the kernel's loop over D.
+D_UNROLL = 8
+# Features at and above this dimension take the kernel on a GPU: it beat
+# XLA's fused exact form at every D measured on an H100, 4 to 128, at
+# N=8192 (PERF.md).  Below it nothing was measured and XLA's fusion is kept.
+MIN_D = 4
 
 
 def use_triton_gram(X, Y) -> bool:
@@ -54,10 +57,22 @@ def use_triton_gram(X, Y) -> bool:
 
 def _gram_kernel(params_ref, xt_ref, yt_ref, *rest, d, profile, bm, bn):
     diag_ref, out_ref = rest if len(rest) == 2 else (None, rest[0])
-    acc = jnp.zeros((bm, bn), jnp.float32)
-    for k in range(d):
+
+    def add_feature(k, acc):
         diff = xt_ref[k, :][:, None] - yt_ref[k, :][None, :]
-        acc = acc + diff * diff
+        return acc + diff * diff
+
+    def add_features(c, acc):
+        for t in range(D_UNROLL):
+            acc = add_feature(c * D_UNROLL + t, acc)
+        return acc
+
+    # features in order, D_UNROLL per loop trip, the remainder unrolled
+    acc = jax.lax.fori_loop(
+        0, d // D_UNROLL, add_features, jnp.zeros((bm, bn), jnp.float32)
+    )
+    for k in range(d - d % D_UNROLL, d):
+        acc = add_feature(k, acc)
     out = radial_profile(profile, acc, params_ref[0], params_ref[1])
     if diag_ref is not None:
         rows = pl.program_id(0) * bm + jax.lax.broadcasted_iota(

@@ -2,9 +2,12 @@
 
 The TP-analog decomposition from SURVEY.md §2's parallelism checklist: the
 N×N SPD matrix lives tile-sharded over a 2-D (R rows × C cols) device mesh —
-device (i, j) owns only its (N/R, N/C) tile, so N is bounded by the
-*total* device memory, not one device's (the 1-D row-panel layout in
-cholesky.py needs N²/R bytes per device).  Replaces the capability of the
+device (i, j) owns only its (N/R, N/C) tile (the 1-D row-panel layout in
+cholesky.py needs N²/R bytes per device).  The factorization overwrites
+the tile in place and every other buffer it holds is O(N·panel) or one
+(N/R, chunk) slice of the tile.  The whole 2-D NLML compiled to two tiles
+per device on an H100 (PERF.md), so N reaches about
+sqrt(R·C · device memory / 8 B) in f32.  Replaces the capability of the
 reference's single-node Eigen LDLT (serializable_ldlt.hpp:19-217) past one
 device.
 
@@ -17,12 +20,18 @@ Factorization (right-looking, panel width p dividing the tile width):
       2. every device redundantly factorizes the p×p diagonal block and
          forms the panel of L via a GEMM against the blocked triangular
          inverse (p³ ≪ the trailing GEMM);
-      3. each device applies the rank-p trailing update to its own tile:
-         one (br × p × bc) GEMM, masked so finalized panels see zeros.
+      3. each device applies the rank-p trailing update to its own tile,
+         one column chunk at a time (a (br × p × chunk) GEMM written back
+         in place), masked so finalized panels see zeros.
 
-Solves walk q-blocks (q = gcd(br, bc), so every diagonal q-block lives on
-exactly one device) with sharded state: each device carries only its (br, m)
-rows of the solution; one psum per step.  check_vma note: solved blocks are
+The owner column writes the whole column block of L, zeros above the
+diagonal included, so the factor needs no final masking pass; no step
+touches the whole tile in one operation.
+
+Solves walk q-blocks (q divides gcd(br, bc), so every diagonal q-block
+lives on exactly one device, and q ≤ SOLVE_BLOCK_MAX) with sharded state:
+each device carries only its (br, m) rows of the solution; one psum per
+step.  check_vma note: solved blocks are
 broadcast with psums over *both* axes so loop carries stay varying over the
 row axis only.
 """
@@ -42,6 +51,19 @@ from ..ops.blocked_cholesky import DEFAULT_PANEL_SUB, blocked_tri_inverse
 from .cholesky import _i32, _pvary
 
 
+# Largest trailing-update chunk, in tile entries: the (br, chunk) GEMM
+# output is the factorization's only tile-proportional temporary.
+UPDATE_CHUNK_ELEMENTS = 1 << 28
+# Largest q-block of the substitution solves (its diagonal block is
+# copied out of the tile and replaced by an identity off its owner).
+SOLVE_BLOCK_MAX = 2048
+
+
+def _largest_divisor(n: int, cap: int) -> int:
+    """Largest divisor of ``n`` that is at most ``cap`` (at least 1)."""
+    return max(d for d in range(1, min(n, max(cap, 1)) + 1) if n % d == 0)
+
+
 def _default_panel(bc: int) -> int:
     if bc <= 1024:
         return bc
@@ -51,18 +73,25 @@ def _default_panel(bc: int) -> int:
     return bc
 
 
-def _chol2d_local(A_local, *, br, bc, p, R, C, row_axis, col_axis):
+def _chol2d_local(A_local, *, br, bc, p, R, C, chunk, row_axis, col_axis):
     n = br * R
     i = jax.lax.axis_index(row_axis)
     j = jax.lax.axis_index(col_axis)
     steps = n // p
 
+    def update_chunk(c, carry):
+        A, Lr, Lc = carry
+        blk = jax.lax.dynamic_slice(A, _i32(0, c * chunk), (br, chunk))
+        Lcc = jax.lax.dynamic_slice(Lc, _i32(c * chunk, 0), (chunk, p))
+        A = jax.lax.dynamic_update_slice(A, blk - Lr @ Lcc.T, _i32(0, c * chunk))
+        return A, Lr, Lc
+
     def body(k, A):
         j_k = (k * p) // bc
         o_c = k * p - j_k * bc
         # 1. assemble panel k: owner column contributes its rows
-        contrib = jax.lax.dynamic_slice(A, _i32(0, o_c), (br, p))
-        contrib = jnp.where(j == j_k, contrib, 0.0)
+        old = jax.lax.dynamic_slice(A, _i32(0, o_c), (br, p))
+        contrib = jnp.where(j == j_k, old, 0.0)
         col_mine = jax.lax.psum(contrib, col_axis)  # (br, p)
         col_full = jax.lax.all_gather(
             col_mine, row_axis, tiled=True
@@ -70,36 +99,35 @@ def _chol2d_local(A_local, *, br, bc, p, R, C, row_axis, col_axis):
 
         # 2. diagonal factor + GEMM-composed inverse (redundant, tiny)
         diag = jax.lax.dynamic_slice(col_full, _i32(k * p, 0), (p, p))
-        L_kk = jnp.linalg.cholesky(diag)
+        L_kk = jnp.tril(jnp.linalg.cholesky(diag))
         W = blocked_tri_inverse(L_kk, DEFAULT_PANEL_SUB)
         panel = col_full @ W.T  # (n, p)
 
         row_ids = jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0)
         below = row_ids >= (k + 1) * p
-        L_col = jnp.where(below, panel, 0.0)
-        diag_rows = jnp.zeros_like(col_full)
-        diag_rows = jax.lax.dynamic_update_slice(diag_rows, L_kk, _i32(k * p, 0))
+        L_below = jnp.where(below, panel, 0.0)
+        diag_rows = jax.lax.dynamic_update_slice(
+            jnp.zeros_like(col_full), L_kk, _i32(k * p, 0)
+        )
         in_diag = (row_ids >= k * p) & (row_ids < (k + 1) * p)
-        L_col = jnp.where(in_diag, diag_rows, L_col)
+        L_col = jnp.where(in_diag, diag_rows, L_below)  # zero above the diagonal
 
-        # write our rows of the finished panel into our tile (owner column)
+        # write our rows of the finished column block into our tile (owner
+        # column only), in place
         mine = jax.lax.dynamic_slice(L_col, _i32(i * br, 0), (br, p))
-        A = jnp.where(
-            j == j_k, jax.lax.dynamic_update_slice(A, mine, _i32(0, o_c)), A
+        A = jax.lax.dynamic_update_slice(
+            A, jnp.where(j == j_k, mine, old), _i32(0, o_c)
         )
 
-        # 3. trailing update on our tile: rows/cols ≤ the panel end are
-        # zeroed in L_below, so finalized entries see a zero update.
-        L_below = jnp.where(below, panel, 0.0)
+        # 3. trailing update on our tile, chunk by chunk: rows/cols ≤ the
+        # panel end are zeroed in L_below, so finalized entries see a zero
+        # update.
         Lr = jax.lax.dynamic_slice(L_below, _i32(i * br, 0), (br, p))
         Lc = jax.lax.dynamic_slice(L_below, _i32(j * bc, 0), (bc, p))
-        return A - Lr @ Lc.T
+        A, _, _ = jax.lax.fori_loop(0, bc // chunk, update_chunk, (A, Lr, Lc))
+        return A
 
-    A_local = jax.lax.fori_loop(0, steps, body, A_local)
-    # zero the strictly-upper triangle of our tile
-    rows_g = jax.lax.broadcasted_iota(jnp.int32, (br, bc), 0) + i * br
-    cols_g = jax.lax.broadcasted_iota(jnp.int32, (br, bc), 1) + j * bc
-    return jnp.where(cols_g <= rows_g, A_local, 0.0)
+    return jax.lax.fori_loop(0, steps, body, A_local)
 
 
 def distributed_cholesky_2d(
@@ -112,8 +140,8 @@ def distributed_cholesky_2d(
     """Cholesky of an SPD matrix tile-sharded over a 2-D mesh.
 
     A must be (N, N) with N divisible by both mesh axis sizes.  Returns L
-    (lower), tile-sharded the same way — no device ever holds more than
-    N²/(R·C) matrix bytes plus one (N, panel) transient.
+    (lower), tile-sharded the same way; each device holds its N²/(R·C)
+    tile plus O(N·panel) transients and one (N/R, chunk) update slice.
     """
     R, C = mesh.shape[row_axis], mesh.shape[col_axis]
     n = A.shape[0]
@@ -131,6 +159,7 @@ def distributed_cholesky_2d(
             p=p,
             R=R,
             C=C,
+            chunk=_largest_divisor(bc, UPDATE_CHUNK_ELEMENTS // br),
             row_axis=row_axis,
             col_axis=col_axis,
         ),
@@ -178,7 +207,7 @@ def _fwd2d_body(L_local, rhs_local, *, br, bc, q, row_axis, col_axis):
         )
         # fold block k into our accumulator iff our tile holds its columns
         Lcol = jax.lax.dynamic_slice(L_local, _i32(0, o_c), (br, q))
-        acc = acc + jnp.where(j == j_k, Lcol, 0.0) @ x_k
+        acc = acc + jnp.where(j == j_k, Lcol @ x_k, 0.0)
         return x_local, acc
 
     return body
@@ -218,7 +247,7 @@ def _bwd2d(L_local, rhs_local, *, br, bc, q, steps, row_axis, col_axis):
         # unsolved rows of x_local are still zero, and rows above the
         # diagonal hold zeros in L, so no extra masking is needed.
         Lcol = jax.lax.dynamic_slice(L_local, _i32(0, o_c), (br, q))
-        contrib = jnp.where(j == j_k, Lcol, 0.0).T @ x_local  # (q, m)
+        contrib = jnp.where(j == j_k, Lcol.T @ x_local, 0.0)  # (q, m)
         total = jax.lax.psum(contrib, (row_axis, col_axis))
         num = jax.lax.dynamic_slice(rhs_local, _i32(o_r, 0), (q, m)) - total
         L_kk = jax.lax.dynamic_slice(L_local, _i32(o_r, o_c), (q, q))
@@ -241,7 +270,7 @@ def _shape2d(L, mesh, row_axis, col_axis):
     R, C = mesh.shape[row_axis], mesh.shape[col_axis]
     n = L.shape[0]
     br, bc = n // R, n // C
-    q = math.gcd(br, bc)
+    q = _largest_divisor(math.gcd(br, bc), SOLVE_BLOCK_MAX)
     return n, br, bc, q, n // q
 
 
@@ -385,11 +414,14 @@ def distributed_log_determinant_2d(L, mesh, row_axis="data", col_axis="model"):
 
         i = jax.lax.axis_index(row_axis)
         j = jax.lax.axis_index(col_axis)
-        rows_g = jax.lax.broadcasted_iota(jnp.int32, (br, bc), 0) + i * br
-        cols_g = jax.lax.broadcasted_iota(jnp.int32, (br, bc), 1) + j * bc
-        on_diag = rows_g == cols_g
+        # our tile's share of the diagonal: local row r holds global row
+        # i·br + r, whose diagonal entry sits at local column i·br + r − j·bc
+        rows = jnp.arange(br, dtype=jnp.int32)
+        cols = i * br + rows - j * bc
+        on_tile = (cols >= 0) & (cols < bc)
+        d = L_local[rows, jnp.clip(cols, 0, bc - 1)]
         return jax.lax.psum(
-            2.0 * accurate_sum_of_logs(L_local, where=on_diag),
+            2.0 * accurate_sum_of_logs(d, where=on_tile),
             (row_axis, col_axis),
         )
 

@@ -167,9 +167,8 @@ class DistributedGaussianProcess(GaussianProcess):
                 self.axis,
                 measurement=True,
                 target_variance=target_variance,
+                jitter=self.jitter,
             )
-            if self.jitter:
-                K = K + self.jitter * jnp.eye(K.shape[0], dtype=K.dtype)
             L = distributed_cholesky(K, self.mesh, self.axis)
             return DistributedCholesky(L, self.mesh, self.axis)
         K = sharded_gram_2d(
@@ -180,9 +179,8 @@ class DistributedGaussianProcess(GaussianProcess):
             self.col_axis,
             measurement=True,
             target_variance=target_variance,
+            jitter=self.jitter,
         )
-        if self.jitter:
-            K = K + self.jitter * jnp.eye(K.shape[0], dtype=K.dtype)
         L = distributed_cholesky_2d(
             K, self.mesh, self.axis, self.col_axis, panel=self.panel
         )

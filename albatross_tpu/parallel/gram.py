@@ -25,18 +25,26 @@ from ..kernels.base import CovarianceFunction
 from ..kernels.features import Measurement
 
 
-def _gram_panel(kernel, X_local, X_full, variance_local, *, measurement, b, axis):
+def _add_diagonal(block, variance_rows, jitter, row0, col0):
+    """block + (variance + jitter) on the global diagonal, where the block
+    starts at global (row0, col0); fused into the block's own write."""
+    if variance_rows is None and not jitter:
+        return block
+    diag = jitter if variance_rows is None else variance_rows[:, None] + jitter
+    rows = jax.lax.broadcasted_iota(jnp.int32, block.shape, 0) + row0
+    cols = jax.lax.broadcasted_iota(jnp.int32, block.shape, 1) + col0
+    return block + jnp.where(rows == cols, diag, 0.0)
+
+
+def _gram_panel(kernel, X_local, X_full, variance_local, *, measurement, jitter, b, axis):
     Xl = Measurement(X_local) if measurement else X_local
     Xf = Measurement(X_full) if measurement else X_full
     panel = kernel.matrix_or_none(Xl, Xf)
     if panel is None:
         raise TypeError("covariance undefined for these features")
-    if variance_local is not None:
-        my = jax.lax.axis_index(axis)
-        rows = jax.lax.broadcasted_iota(jnp.int32, panel.shape, 0) + my * b
-        cols = jax.lax.broadcasted_iota(jnp.int32, panel.shape, 1)
-        panel = panel + jnp.where(rows == cols, variance_local[:, None], 0.0)
-    return panel
+    return _add_diagonal(
+        panel, variance_local, jitter, jax.lax.axis_index(axis) * b, 0
+    )
 
 
 def sharded_gram(
@@ -46,12 +54,13 @@ def sharded_gram(
     axis: str = "data",
     measurement: bool = False,
     target_variance: Optional[jnp.ndarray] = None,
+    jitter: float = 0.0,
 ):
     """Row-sharded (N, N) Gram matrix of a feature batch.
 
     N must divide the mesh axis size.  ``measurement=True`` applies the
     Measurement tag to both sides (training covariance semantics);
-    ``target_variance`` is added to the diagonal.
+    ``target_variance`` and ``jitter`` are added to the diagonal.
     """
     n = jax.tree_util.tree_leaves(X)[0].shape[0]
     G = mesh.shape[axis]
@@ -62,7 +71,9 @@ def sharded_gram(
     var_spec = P(axis) if target_variance is not None else None
     in_specs = (P(), P(axis), P(), var_spec)
     fn = jax.shard_map(
-        functools.partial(_gram_panel, measurement=measurement, b=b, axis=axis),
+        functools.partial(
+            _gram_panel, measurement=measurement, jitter=jitter, b=b, axis=axis
+        ),
         mesh=mesh,
         in_specs=in_specs,
         out_specs=P(axis, None),
@@ -70,19 +81,19 @@ def sharded_gram(
     return fn(kernel, X, X, target_variance)
 
 
-def _gram_tile(kernel, X_rows, X_cols, variance_rows, *, measurement, br, bc, row_axis, col_axis):
+def _gram_tile(
+    kernel, X_rows, X_cols, variance_rows, *, measurement, jitter, br, bc,
+    row_axis, col_axis,
+):
     Xr = Measurement(X_rows) if measurement else X_rows
     Xc = Measurement(X_cols) if measurement else X_cols
     tile = kernel.matrix_or_none(Xr, Xc)
     if tile is None:
         raise TypeError("covariance undefined for these features")
-    if variance_rows is not None:
-        my_r = jax.lax.axis_index(row_axis)
-        my_c = jax.lax.axis_index(col_axis)
-        rows = jax.lax.broadcasted_iota(jnp.int32, tile.shape, 0) + my_r * br
-        cols = jax.lax.broadcasted_iota(jnp.int32, tile.shape, 1) + my_c * bc
-        tile = tile + jnp.where(rows == cols, variance_rows[:, None], 0.0)
-    return tile
+    return _add_diagonal(
+        tile, variance_rows, jitter,
+        jax.lax.axis_index(row_axis) * br, jax.lax.axis_index(col_axis) * bc,
+    )
 
 
 def sharded_gram_2d(
@@ -93,11 +104,14 @@ def sharded_gram_2d(
     col_axis: str = "model",
     measurement: bool = False,
     target_variance: Optional[jnp.ndarray] = None,
+    jitter: float = 0.0,
 ):
     """(N, N) Gram matrix block-sharded over a 2-D mesh — the TP-analog
     decomposition (SURVEY.md §2 checklist): device (i, j) computes and owns
     only its (N/R, N/C) tile, so per-device Gram memory scales as N²/(R·C)
-    instead of N²/R.  Features replicate (they are O(N·D), tiny next to K)."""
+    instead of N²/R.  Features replicate (they are O(N·D), tiny next to K).
+    ``target_variance`` and ``jitter`` are added to the diagonal inside the
+    tile's own write, so no second N×N array exists."""
     n = jax.tree_util.tree_leaves(X)[0].shape[0]
     R, C = mesh.shape[row_axis], mesh.shape[col_axis]
     if n % R != 0 or n % C != 0:
@@ -109,6 +123,7 @@ def sharded_gram_2d(
         functools.partial(
             _gram_tile,
             measurement=measurement,
+            jitter=jitter,
             br=br,
             bc=bc,
             row_axis=row_axis,

@@ -73,11 +73,7 @@ def _measure_nlml(n: int, r: int, algorithm: str = "right"):
     data = ab.RegressionDataset.create(x, y)
 
     prev_alg = _cfg.CHOLESKY_ALGORITHM
-    prev_min = _cfg.CHOLESKY_FUSED_MIN_N
     _cfg.CHOLESKY_ALGORITHM = algorithm
-    # the algorithm is the thing being measured: disable the memory
-    # auto-upgrade so "right" really is the materialized path
-    _cfg.CHOLESKY_FUSED_MIN_N = 0
     try:
         # fresh jit per call: the trace reads the algorithm knob eagerly
         # and threads it as a static arg into the inner program
@@ -109,7 +105,6 @@ def _measure_nlml(n: int, r: int, algorithm: str = "right"):
         return best / r
     finally:
         _cfg.CHOLESKY_ALGORITHM = prev_alg
-        _cfg.CHOLESKY_FUSED_MIN_N = prev_min
 
 
 def main() -> int:

@@ -9,11 +9,14 @@ of an (N, D) f32 batch, two ways:
 * ``triton``: the library's GPU kernel (``training_gram``), one tile per
   program with the diagonal add fused in.
 
-Measured at N=8192/D=32 (the gram alone, checked against f64) and inside
-a fit at N=28672/D=32 (gram + blocked Cholesky + solve), each the median
-of 5 timed calls ending in ``block_until_ready``.
+Measured at N=8192 for each D of ``--dims`` (the gram alone, checked
+against f64), and with ``--fit`` inside a fit at N=28672/D=32 (gram +
+blocked Cholesky + solve); each time is the median of 5 timed calls ending
+in ``block_until_ready``.  Records go to ``chiprun_out/gram_route.json``.
+On an H100, XLA compiled its form for 7m40s at D=64 and had not finished
+D=256 some minutes later, so the default list leaves both out.
 
-    python -m benchmarks.exp_gram_route    # on the GPU
+    python -m benchmarks.exp_gram_route [--dims 9,16,32,128] [--fit]
 """
 
 from __future__ import annotations
@@ -41,10 +44,16 @@ def _median_time(fn, *args, reps=5):
     return statistics.median(ts)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--dims", default="4,8,9,12,16,24,32,128")
+    parser.add_argument("--fit", action="store_true")
+    args = parser.parse_args(argv)
+
     import jax
     import jax.numpy as jnp
-    from scipy.spatial.distance import cdist
 
     from albatross_tpu.ops.linalg import CholeskyFactor
     from albatross_tpu.ops.triton_gram import _xla_gram, training_gram
@@ -55,7 +64,7 @@ def main() -> int:
         print("exp_gram_route: needs a GPU", file=sys.stderr)
         return 2
     enable_compilation_cache()
-    ls, sigma, diag_value, d = 150.0, 1.0, 0.09 + 1e-4, 32
+    ls, sigma, diag_value = 150.0, 1.0, 0.09 + 1e-4
     profile = "squared_exponential"
     rng = np.random.default_rng(2)
     records = []
@@ -70,19 +79,30 @@ def main() -> int:
         "triton": lambda x, dg: training_gram(x, ls, sigma, dg, profile),
     }
     n = 8192
-    X = rng.uniform(0.0, 100.0, (n, d)).astype(np.float32)
-    X64 = X.astype(np.float64)
-    K64 = sigma**2 * np.exp(-cdist(X64, X64, "sqeuclidean") / ls**2)
-    K64 += diag_value * np.eye(n)
-    Xj, dg = jnp.asarray(X), jnp.full((n,), diag_value, jnp.float32)
-    for route, gram in grams.items():
-        fn = jax.jit(gram)
-        K = np.asarray(fn(Xj, dg))
-        emit(route=route, what=f"gram n={n} d={d}",
-             ms=_median_time(fn, Xj, dg) * 1e3,
-             max_abs_err=float(np.max(np.abs(K - K64))),
-             symmetric=bool(np.array_equal(K, K.T)))
+    for d in (int(v) for v in args.dims.split(",")):
+        X = rng.uniform(0.0, 100.0 * (32 / d) ** 0.5, (n, d)).astype(np.float32)
+        X64 = X.astype(np.float64)
+        sq = np.sum(X64 * X64, axis=1)
+        d2 = np.maximum(sq[:, None] + sq[None, :] - 2.0 * X64 @ X64.T, 0.0)
+        K64 = sigma**2 * np.exp(-d2 / ls**2) + diag_value * np.eye(n)
+        Xj, dg = jnp.asarray(X), jnp.full((n,), diag_value, jnp.float32)
+        for route, gram in grams.items():
+            fn = jax.jit(gram)
+            try:
+                K = np.asarray(fn(Xj, dg))
+            except Exception as exc:  # a route that fails at this D is a finding
+                emit(route=route, what=f"gram n={n} d={d}",
+                     error=f"{type(exc).__name__}: {str(exc)[:300]}")
+                continue
+            emit(route=route, what=f"gram n={n} d={d}",
+                 ms=_median_time(fn, Xj, dg) * 1e3,
+                 max_abs_err=float(np.max(np.abs(K - K64))),
+                 symmetric=bool(np.array_equal(K, K.T)))
+            del K
+    if not args.fit:
+        return _write(records)
 
+    d = 32
     n = 28672
     X = jnp.asarray(rng.uniform(0.0, 100.0, (n, d)), jnp.float32)
     y = jnp.sin(0.05 * X[:, 0]) + 0.1 * jnp.asarray(
@@ -94,6 +114,10 @@ def main() -> int:
             gram(x, dg), assume_symmetric=True).solve(v))
         emit(route=route, what=f"fit n={n} d={d}",
              ms=_median_time(fit, X, y) * 1e3)
+    return _write(records)
+
+
+def _write(records) -> int:
     out = os.path.join(os.path.dirname(__file__), "..", "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "gram_route.json"), "w") as fh:

@@ -335,11 +335,11 @@ def test_right_fused_gram_gp_equivalence(rng):
         )
 
 
-def test_fused_min_n_auto_upgrade(rng, monkeypatch):
-    """config.CHOLESKY_FUSED_MIN_N auto-upgrades the default "right"
-    algorithm to the lazy-gram "right_fused" loop at large N — the mode
-    that holds no N×N covariance — and the upgraded path must (a)
-    actually engage and (b) match the materialized NLML."""
+def test_right_fused_is_opt_in(rng, monkeypatch):
+    """The default "right" algorithm keeps the materialized covariance at
+    any N (the lazy-gram loop holds as many bytes on a GPU, PERF.md); the
+    lazy-gram "right_fused" loop engages only when asked for, and then
+    matches the materialized NLML."""
     import albatross_tpu as ab
     from albatross_tpu import config
     from albatross_tpu.models import gp as gp_mod
@@ -361,16 +361,11 @@ def test_fused_min_n_auto_upgrade(rng, monkeypatch):
         return real(*args, **kwargs)
 
     monkeypatch.setattr(gp_mod, "_fused_gram_nlml", spy)
-    prev = config.CHOLESKY_FUSED_MIN_N
-    try:
-        config.CHOLESKY_FUSED_MIN_N = 0  # disabled: materialized path
-        ll_ref = float(m.log_likelihood(data))
-        assert calls == []
-        config.CHOLESKY_FUSED_MIN_N = n  # threshold == n: engages
-        ll_up = float(m.log_likelihood(data))
-        assert calls == ["right_fused"]
-    finally:
-        config.CHOLESKY_FUSED_MIN_N = prev
+    ll_ref = float(m.log_likelihood(data))
+    assert calls == []
+    monkeypatch.setattr(config, "CHOLESKY_ALGORITHM", "right_fused")
+    ll_up = float(m.log_likelihood(data))
+    assert calls == ["right_fused"]
     assert ll_up == pytest.approx(ll_ref, rel=1e-10)
 
 

@@ -1,20 +1,18 @@
 """What the library derives from the device it runs on, and the GPU smoke
-script's guards: compile-cache location, the memory-derived lazy-gram
-threshold, the exact-product precision, the panel-factorizer choices."""
+script's guards: compile-cache location, the exact-product precision,
+the panel-factorizer choices."""
 
 import os
 import pathlib
 import shutil
 import subprocess
 import sys
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from albatross_tpu import config
 from albatross_tpu.utils import compile_cache
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -50,62 +48,6 @@ def test_enable_compilation_cache_sets_only_without_env(monkeypatch, env_dir):
         monkeypatch.setenv(compile_cache.ENV_VAR, env_dir)
         assert compile_cache.enable_compilation_cache() == env_dir
         assert updates == []
-
-
-# -- memory-derived lazy-gram threshold ---------------------------------------
-def test_fused_min_n_is_first_n_that_does_not_fit():
-    limit = 60 * 2**30
-    n = config.fused_min_n(limit, 4, peak_matrices=2.0)
-    assert 2.0 * 4 * n * n > limit
-    assert 2.0 * 4 * (n - 1) ** 2 <= limit
-
-
-@pytest.mark.parametrize("itemsize", [4, 8])
-def test_fused_min_n_scales_with_memory_and_dtype(itemsize):
-    small = config.fused_min_n(16 * 2**30, itemsize, peak_matrices=3.0)
-    big = config.fused_min_n(64 * 2**30, itemsize, peak_matrices=3.0)
-    assert big == pytest.approx(2 * small, rel=1e-3)
-    assert config.fused_min_n(16 * 2**30, 8, 3.0) < config.fused_min_n(
-        16 * 2**30, 4, 3.0
-    )
-
-
-def test_fused_min_n_rejects_nonpositive():
-    with pytest.raises(ValueError):
-        config.fused_min_n(0, 4)
-    with pytest.raises(ValueError):
-        config.fused_min_n(2**30, 4, peak_matrices=0.0)
-
-
-def _fake_device(stats, platform="gpu"):
-    return SimpleNamespace(
-        platform=platform, device_kind="Fake", memory_stats=lambda: stats
-    )
-
-
-def test_device_memory_limit_reads_bytes_limit():
-    dev = _fake_device({"bytes_limit": 12345, "peak_bytes_in_use": 7})
-    assert config.device_memory_limit(dev) == 12345
-
-
-@pytest.mark.parametrize("stats", [None, {}, {"bytes_in_use": 1}])
-def test_device_memory_limit_unknown_device_raises(stats):
-    with pytest.raises(RuntimeError, match="bytes_limit"):
-        config.device_memory_limit(_fake_device(stats))
-
-
-def test_device_memory_limit_cpu_is_host_memory():
-    assert config.device_memory_limit(jax.devices("cpu")[0]) > 2**28
-
-
-def test_resolved_fused_min_n_honours_override(monkeypatch):
-    monkeypatch.setattr(config, "CHOLESKY_FUSED_MIN_N", 5000)
-    assert config.resolved_fused_min_n(4) == 5000
-    monkeypatch.setattr(config, "CHOLESKY_FUSED_MIN_N", 0)
-    assert config.resolved_fused_min_n(4) == 0
-    monkeypatch.setattr(config, "CHOLESKY_FUSED_MIN_N", None)
-    derived = config.resolved_fused_min_n(8)
-    assert derived == config.fused_min_n(config.device_memory_limit(), 8)
 
 
 # -- precision ---------------------------------------------------------------

@@ -10,7 +10,6 @@ import numpy as np
 import pytest
 
 import albatross_tpu as ab
-from albatross_tpu import config
 
 pytestmark = pytest.mark.gpu
 
@@ -69,8 +68,18 @@ def test_blocked_nlml_on_card_matches_f64(gpu_device, rng):
     assert ll == pytest.approx(ll64, rel=1e-3)
 
 
-def test_lazy_gram_threshold_from_card_memory(gpu_device):
-    limit = gpu_device.memory_stats()["bytes_limit"]
-    assert config.device_memory_limit(gpu_device) == limit
-    n = config.fused_min_n(limit, 4)
-    assert config.NLML_PEAK_MATRICES * 4 * n * n > limit
+def test_2d_cholesky_on_card_in_chunks(gpu_device, rng, monkeypatch):
+    """The 2-D factorization on a (1, 1) mesh with a chunked trailing
+    update matches cuSOLVER's f32 factor of the same matrix."""
+    from albatross_tpu.parallel import cholesky2d, distributed_cholesky_2d, make_mesh
+
+    n = 4096
+    monkeypatch.setattr(cholesky2d, "UPDATE_CHUNK_ELEMENTS", n * 512)
+    A = rng.standard_normal((n, n)).astype(np.float32)
+    K = jnp.asarray(A @ A.T / n + np.eye(n, dtype=np.float32))
+    mesh = make_mesh(1, ("data", "model"), shape=(1, 1))
+    with jax.default_matmul_precision("highest"):
+        L = np.asarray(distributed_cholesky_2d(K, mesh, panel=512))
+        ref = np.asarray(jnp.linalg.cholesky(K))
+    assert np.all(np.triu(L, 1) == 0.0)
+    np.testing.assert_allclose(L, ref, atol=1e-4)

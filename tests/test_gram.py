@@ -313,6 +313,39 @@ def test_triton_gram_no_cancellation_at_large_coordinates(rng):
     )
 
 
+@pytest.mark.parametrize("d", [3, 8, 17, 100])
+def test_triton_gram_loop_over_features(d, rng):
+    """The kernel's loop over D (whole trips of D_UNROLL plus an unrolled
+    remainder) sums every feature once, in order."""
+    from albatross_tpu.ops.triton_gram import pallas_radial_gram
+
+    n, m = 70, 130
+    X = jnp.asarray(rng.uniform(0, 30, (n, d)), dtype=jnp.float32)
+    Y = jnp.asarray(rng.uniform(0, 30, (m, d)), dtype=jnp.float32)
+    K = pallas_radial_gram(X, Y, 40.0, 1.1, "squared_exponential",
+                           interpret=True)
+    np.testing.assert_allclose(
+        np.asarray(K), 1.1**2 * np.exp(-_d2_64(X, Y) / 1600.0), atol=5e-6
+    )
+
+
+@pytest.mark.parametrize("profile", sorted(PROFILES))
+def test_nonpositive_length_scale_gives_zero(profile, rng):
+    """ls ≤ 0 gives a zero gram on every route, diagonal included, where
+    an unguarded 0/0 would give NaN."""
+    from albatross_tpu.ops.triton_gram import _xla_gram, pallas_radial_gram
+
+    X = jnp.asarray(rng.uniform(0, 5, (40, 12)), dtype=jnp.float32)
+    for ls in (0.0, -1.0):
+        K = pallas_radial_gram(X, X, ls, 1.3, profile, interpret=True)
+        np.testing.assert_array_equal(np.asarray(K), 0.0)
+        np.testing.assert_array_equal(
+            np.asarray(_xla_gram(X, X, ls, 1.3, profile)), 0.0
+        )
+        ref = PROFILES[profile](jnp.zeros(3), ls, 1.3)
+        np.testing.assert_array_equal(np.asarray(ref), 0.0)
+
+
 def test_use_triton_gram_policy(monkeypatch):
     from albatross_tpu.ops import triton_gram
 

@@ -493,6 +493,78 @@ def test_no_device_holds_n_squared(mesh, mesh2d, rng):
     assert comp.memory_analysis().temp_size_in_bytes < nsq_bytes
 
 
+@pytest.mark.parametrize("chunk_cols,solve_block", [(8, 4), (16, 8), (32, 16)])
+def test_2d_chunked_update_and_small_solve_blocks(
+    mesh2d, rng, monkeypatch, chunk_cols, solve_block
+):
+    """The trailing update in column chunks of the tile, and substitution
+    solves over q-blocks smaller than gcd(br, bc), give the dense answers;
+    the factor comes out exactly zero above the diagonal."""
+    from albatross_tpu.parallel import cholesky2d as c2d
+
+    n = 64  # (4, 2) mesh: tiles of 16 x 32
+    monkeypatch.setattr(c2d, "UPDATE_CHUNK_ELEMENTS", 16 * chunk_cols)
+    monkeypatch.setattr(c2d, "SOLVE_BLOCK_MAX", solve_block)
+    A = np.asarray(spd_matrix(rng, n))
+    L = c2d.distributed_cholesky_2d(jnp.asarray(A), mesh2d, panel=8)
+    L_ref = np.linalg.cholesky(A)
+    np.testing.assert_allclose(np.asarray(L), L_ref, atol=1e-9)
+    assert np.all(np.triu(np.asarray(L), 1) == 0.0)
+    assert c2d._shape2d(L, mesh2d, "data", "model")[3] == solve_block
+    rhs = rng.standard_normal(n)
+    np.testing.assert_allclose(
+        np.asarray(c2d.distributed_solve_2d(L, jnp.asarray(rhs), mesh2d)),
+        np.linalg.solve(A, rhs), rtol=1e-8,
+    )
+    np.testing.assert_allclose(
+        np.asarray(c2d.distributed_sqrt_solve_2d(L, jnp.asarray(rhs), mesh2d)),
+        np.linalg.solve(L_ref, rhs), rtol=1e-8,
+    )
+    assert float(c2d.distributed_log_determinant_2d(L, mesh2d)) == pytest.approx(
+        float(np.linalg.slogdet(A)[1]), rel=1e-10
+    )
+
+
+@pytest.mark.parametrize("n,cap,expected", [
+    (65536, 2048, 2048), (12, 5, 4), (7, 100, 7), (7, 3, 1), (1, 1, 1),
+])
+def test_largest_divisor(n, cap, expected):
+    from albatross_tpu.parallel.cholesky2d import _largest_divisor
+
+    assert _largest_divisor(n, cap) == expected
+
+
+def test_2d_nlml_holds_one_tile_and_panels(rng):
+    """The 2-D NLML's compiled per-device temporaries at N=2048 on a (2, 2)
+    mesh with 64-wide panels: the tile it factorizes in place plus O(N·panel)
+    and chunk-sized buffers.  A tile-sized select, the jitter's global
+    eye, or a full-tile log-det reduction would each add a whole tile."""
+    from albatross_tpu.parallel import cholesky2d as c2d
+    from albatross_tpu.parallel import make_mesh as mm
+
+    n = 2048
+    mesh = mm(4, ("data", "model"), shape=(2, 2))
+    x = np.sort(rng.uniform(0, 100, n)).astype(np.float32)
+    data = RegressionDataset.create(jnp.asarray(x), jnp.asarray(np.sin(x)))
+    kernel = SquaredExponential(0.5, 1.0) + measurement_only(
+        IndependentNoise(0.3, assume_unique=True)
+    )
+    model = distributed_gp_from_covariance(
+        kernel, mesh, col_axis="model", jitter=1e-4, panel=64
+    )
+    nll = jax.jit(lambda d: model.log_likelihood(d))
+    tile = (n // 2) * (n // 2) * jax.eval_shape(nll, data).dtype.itemsize
+    old = c2d.UPDATE_CHUNK_ELEMENTS, c2d.SOLVE_BLOCK_MAX
+    try:
+        c2d.UPDATE_CHUNK_ELEMENTS, c2d.SOLVE_BLOCK_MAX = (n // 2) * 64, 64
+        comp = nll.lower(data).compile()
+    finally:
+        c2d.UPDATE_CHUNK_ELEMENTS, c2d.SOLVE_BLOCK_MAX = old
+    # the CPU compiler keeps one more transposed copy of the factor for the
+    # substitution loop; the GPU's layouts are measured in PERF.md
+    assert comp.memory_analysis().temp_size_in_bytes < 3.5 * tile
+
+
 def test_distributed_tri_inverse_2d(mesh2d, rng):
     """The R-round tile-sharded W = L⁻¹ (the engine behind the O(R)-round
     2-D fast-LOO) matches the dense inverse and stays tile-sharded."""
